@@ -1,0 +1,320 @@
+"""Database build orchestrator on PyTorch: the counterpart of
+``ipk_tpu/builder.py`` for the dense, in-RAM build.
+
+* stage 1: the ghost tensor P_all [G, S, σ], its bound-oracle prefix
+  [G, S+1] and the f32 eps move to the device (:func:`stage1_state`);
+  ``dense.masked_halves`` makes the half tensors once, and per key batch
+  the ``combine_max`` kernel and ``dense.group_max`` make the per-branch
+  accumulator A[B, chunk], whose survivors are compacted on the device so
+  only they cross to the host.
+* stage 2: extraction + mif0/random filter per batch (``host``).
+* stage 3: global ascending (fv, key) sort and one streaming write.
+
+Not ported yet, each raising ``NotImplementedError``: the sparse large-k
+path (σ^k ≥ 2^24), ``keep_positions``, ``on_disk``, ``device_mi`` and
+builds over more than one device.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, Iterator, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ipk_tpu import serialize
+from ipk_tpu.ar.mapping import gather_ghost_tensor, ghost_groups
+from ipk_tpu.core.filter import RandomFilterStream, score_threshold
+from ipk_tpu.db import PhyloKmerDB
+from ipk_tpu.seq import SeqTraits
+from ipk_tpu.tree import PhyloTree, to_newick
+
+from . import device as device_mod
+from .core import dense
+from .core.kernels import combine_max
+from .host import (BuildResult, _extract_batch, _extract_compact, _prefetch,
+                   _Progress, _sort_batch, log_threshold_f32,
+                   pick_key_batches)
+
+__all__ = ["build", "stage1_inputs", "stage1_state", "choose_key_batches",
+           "Stage1Inputs", "BuildResult", "MAX_DENSE_KEYSPACE"]
+
+#: candidate spaces at or above this size take the sparse path in ipk_tpu
+MAX_DENSE_KEYSPACE = 1 << 24
+
+
+class Stage1Inputs(NamedTuple):
+    """The numpy inputs of stage 1, derived as ``ipk_tpu`` derives them."""
+    P_all: np.ndarray        # [G, S, σ] f32 ghost posteriors
+    prefix_all: np.ndarray   # [G, S+1] f32 bound-oracle prefix
+    eps: np.float32          # log10 threshold
+    ghosts_per_group: int    # ghost matrices per branch (G = groups x this)
+    group_ids: List[int]     # original postorder id of each branch
+
+
+def stage1_inputs(original_tree: PhyloTree, extended_tree: PhyloTree,
+                  ghost_mapping: Dict[str, int], ar_mapping: Dict[str, str],
+                  label_rows: Dict[str, int], P: np.ndarray, *, sigma: int,
+                  kmer_size: int, omega: float,
+                  ghost_strategy: str = "both") -> Stage1Inputs:
+    """Gather the ghost posteriors of every branch and derive their prefix
+    and eps (``ipk_tpu/builder.py`` stage-1 inputs)."""
+    groups, group_ids = ghost_groups(extended_tree, original_tree,
+                                     ghost_mapping, ghost_strategy)
+    P_all = np.asarray(gather_ghost_tensor(groups, ar_mapping, label_rows, P),
+                       dtype=np.float32)
+    return Stage1Inputs(P_all, dense.best_score_prefix(P_all),
+                        log_threshold_f32(omega, sigma, kmer_size),
+                        len(groups[0]) if groups else 1, group_ids)
+
+
+def choose_key_batches(n_groups: int, nl: int, nr: int) -> int:
+    """The number of key batches a build splits its accumulator into."""
+    key_batches = pick_key_batches(n_groups, nl, nr)
+    # split big accumulators into a few batches even when memory alone would
+    # not require it, so the next batch's device→host copy overlaps the
+    # current batch's host extraction
+    if n_groups * nl * nr * 4 > (16 << 20):
+        for cand in (4, 2):
+            if key_batches < cand and nl % cand == 0:
+                return cand
+    return key_batches
+
+
+def stage1_state(P_all: np.ndarray, prefix_all: np.ndarray, eps,
+                 device) -> tuple:
+    """The build's state as the port's tensors on ``device``: the ghost
+    posteriors P_all [G, S, σ] f32, their bound-oracle prefix [G, S+1] f32
+    and eps as a 0-d f32 tensor. Takes the same numpy arrays ipk_tpu does."""
+    dev = device_mod.resolve(device)
+    P = torch.from_numpy(np.ascontiguousarray(P_all, np.float32)).to(dev)
+    prefix = torch.from_numpy(
+        np.ascontiguousarray(prefix_all, np.float32)).to(dev)
+    eps_t = torch.tensor(np.float32(eps), dtype=torch.float32, device=dev)
+    return P, prefix, eps_t
+
+
+def _enumerate_batches(P_all: np.ndarray, prefix_all: np.ndarray, *,
+                       k: int, sigma: int, eps: np.float32,
+                       ghosts_per_group: int, key_batches: int,
+                       device: torch.device, stats: Dict) -> Iterator[tuple]:
+    """Yield per key batch ("compact", lo, B, chunk, flat_idx, scores,
+    count), ("bitmask", lo, B, chunk, packed, scores, count) or ("dense",
+    lo, A, None, count); ``count`` is the batch's explored-tuple total
+    (``db_builder.cpp:576-626``).
+
+    ``stats`` accumulates ``device_compute`` (device work, ended by a
+    synchronize), ``transfer`` and ``transfer_bytes`` (device→host copies of
+    the batch payloads, made here in the prefetch worker so batch N+1's copy
+    overlaps the main thread's extraction of batch N).
+    """
+    stats.setdefault("device_compute", 0.0)
+    stats.setdefault("transfer", 0.0)
+    stats.setdefault("transfer_bytes", 0)
+    hl = k // 2
+    nl, nr = sigma ** hl, sigma ** (k - hl)
+    B0 = P_all.shape[0] // ghosts_per_group
+    t_dev = time.monotonic()
+    P, prefix, eps_t = stage1_state(P_all, prefix_all, eps, device)
+    L, R = dense.masked_halves(P, prefix, eps_t, k=k, sigma=sigma)
+    del P, prefix
+    device_mod.synchronize(device)
+    stats["device_compute"] += time.monotonic() - t_dev
+
+    step = nl // key_batches
+    for b in range(key_batches):
+        t_dev = time.monotonic()
+        Lb = L[:, :, b * step:(b + 1) * step].contiguous()
+        A_g, cnt = combine_max(Lb, R, eps_t)
+        del Lb
+        A = dense.group_max(A_g.reshape(A_g.shape[0], -1), ghosts_per_group)
+        del A_g
+        count = int(cnt.sum())
+        # survivor density decides the transfer representation, whichever
+        # costs the fewest bytes:
+        #   compact (idx, score):     8 B/survivor
+        #   bitmask + packed scores:  cells/8 + 4 B/survivor
+        #   raw dense tensor:         4 B/cell
+        n_surv = int(torch.isfinite(A).sum())
+        cells = A.numel()
+        idx_bytes = 8 * n_surv
+        bm_bytes = cells // 8 + 4 * n_surv
+        dense_bytes = 4 * cells
+        rep = os.environ.get("IPK_TPU_TRANSFER", "auto")
+        if rep == "auto":
+            rep = ("idx" if idx_bytes <= min(bm_bytes, dense_bytes)
+                   else "bitmask" if bm_bytes < dense_bytes
+                   else "dense")
+        lo = b * step * nr
+        if rep == "dense":
+            device_mod.synchronize(device)
+            stats["device_compute"] += time.monotonic() - t_dev
+            t_tr = time.monotonic()
+            A_np = A.cpu().numpy()
+            stats["transfer"] += time.monotonic() - t_tr
+            stats["transfer_bytes"] += A_np.nbytes
+            yield ("dense", lo, A_np, None, count)
+            continue
+        # both compacted forms flatten the TRANSPOSED accumulator: row-major
+        # order over [chunk, B] is key-major with groups ascending within a
+        # key — the DB's entry order, so the host needs no sort
+        AT = A.t().contiguous()
+        del A
+        if rep == "bitmask":
+            packed_dev, sc_dev, n = dense.bitmask_survivors(AT)
+        else:
+            packed_dev, sc_dev, n = dense.compact_survivors(AT)
+        del AT
+        device_mod.synchronize(device)
+        stats["device_compute"] += time.monotonic() - t_dev
+        t_tr = time.monotonic()
+        head = packed_dev.cpu().numpy()
+        scores = sc_dev.cpu().numpy()
+        stats["transfer"] += time.monotonic() - t_tr
+        stats["transfer_bytes"] += head.nbytes + scores.nbytes
+        yield (rep if rep == "bitmask" else "compact", lo, B0, step * nr,
+               head, scores, count)
+
+
+def _unported(sparse: bool, keep_positions: bool, on_disk: bool,
+              device_mi: bool) -> Optional[str]:
+    """The message for the first requested mode the port lacks, or None."""
+    if sparse:
+        return ("the sparse large-k path (sigma^k >= 2^24: DNA k >= 12, "
+                "AA k >= 6) is not ported yet: ROADMAP.md item 5")
+    if keep_positions:
+        return ("--keep-positions is not ported yet: ROADMAP.md item 4")
+    if on_disk:
+        return "--on-disk is not ported yet: ROADMAP.md item 4"
+    if device_mi:
+        return ("--device-mi needs a multi-device build, not ported yet: "
+                "ROADMAP.md item 8")
+    return None
+
+
+def build(original_tree: PhyloTree,
+          extended_tree: PhyloTree,
+          ghost_mapping: Dict[str, int],
+          ar_mapping: Dict[str, str],
+          label_rows: Dict[str, int],
+          P: np.ndarray,
+          *,
+          traits: SeqTraits,
+          kmer_size: int,
+          omega: float,
+          filter_type: str = "mif0",
+          ghost_strategy: str = "both",
+          merge_branches: bool = False,
+          keep_positions: bool = False,
+          output_filename: Optional[str] = None,
+          uncompressed: bool = False,
+          on_disk: bool = False,
+          key_batches: Optional[int] = None,
+          device_mi: bool = False,
+          device: device_mod.DeviceLike = "cuda",
+          verbose: int = 1) -> BuildResult:
+    """Run the stage-1..3 build (cf. ``db_builder::run``,
+    ``db_builder.cpp:182-218``) on one torch device."""
+    from ipk_tpu.utils.malloc_tune import retain_heap
+    retain_heap()
+    sigma = traits.alphabet_size
+    if kmer_size > traits.max_kmer_length:
+        raise RuntimeError(
+            f"Maximum k-mer size allowed: {traits.max_kmer_length}")
+    if on_disk and keep_positions:
+        raise RuntimeError("Positions are not supported in this version")
+    why = _unported(sigma ** kmer_size >= MAX_DENSE_KEYSPACE, keep_positions,
+                    on_disk, device_mi)
+    if why:
+        raise NotImplementedError(why)
+    dev = device_mod.resolve(device)
+    timings: Dict[str, float] = {}
+
+    if verbose > 0:
+        print("Computation parameters:")
+        print(f"\tsequence type: {traits.name}")
+        print(f"\tk: {kmer_size}")
+        print(f"\tomega: {omega}")
+        print(f"\ton disk: {on_disk}")
+        print(f"\tkeep positions: {keep_positions}")
+        print(f"\tdevice: {dev}\n")
+
+    db = PhyloKmerDB(kmer_size, omega, traits.name, to_newick(original_tree),
+                     original_tree.tree_index())
+
+    # ---- stage 1 inputs ---------------------------------------------------
+    t0 = time.monotonic()
+    s1 = stage1_inputs(original_tree, extended_tree, ghost_mapping,
+                       ar_mapping, label_rows, P, sigma=sigma,
+                       kmer_size=kmer_size, omega=omega,
+                       ghost_strategy=ghost_strategy)
+    group_ids = s1.group_ids
+    hl = kmer_size // 2
+    nl, nr = sigma ** hl, sigma ** (kmer_size - hl)
+    if key_batches is None:
+        key_batches = choose_key_batches(len(group_ids), nl, nr)
+    threshold = score_threshold(omega, sigma, kmer_size)
+    rng_stream = RandomFilterStream() if filter_type == "random" else None
+    total_num_groups = original_tree.get_node_count()
+
+    batches = _enumerate_batches(
+        s1.P_all, s1.prefix_all, k=kmer_size, sigma=sigma, eps=s1.eps,
+        ghosts_per_group=s1.ghosts_per_group, key_batches=key_batches,
+        device=dev, stats=timings)
+
+    # ---- stages 2+3 -------------------------------------------------------
+    parts = []
+    num_explored = 0
+    bar = _Progress("Computing phylo-k-mers", key_batches, verbose >= 1)
+    timings.setdefault("host_extract", 0.0)
+    for batch in _prefetch(batches):
+        t_x = time.monotonic()
+        if batch[0] == "dense":
+            _, lo, A, pos, count = batch
+            num_explored += count
+            part = _extract_batch(
+                A, lo, pos, group_ids, kmer_size, traits, total_num_groups,
+                threshold, filter_type, rng_stream, merge_branches)
+        else:
+            _, lo, B, chunk, flat_idx, scores, count = batch
+            num_explored += count
+            if batch[0] == "bitmask":
+                # unpackbits is MSB-first, matching the device packer
+                flat = np.unpackbits(flat_idx)[:B * chunk]
+                flat_idx = np.flatnonzero(flat).astype(np.int32)
+            part = _extract_compact(
+                flat_idx, scores, B, chunk, lo, group_ids, kmer_size, traits,
+                total_num_groups, threshold, filter_type, rng_stream,
+                merge_branches)
+        parts.append(part)
+        timings["host_extract"] += time.monotonic() - t_x
+        bar.step()
+    timings["computation"] = time.monotonic() - t0
+    if verbose > 0:
+        print(f"Computation time: {timings['computation']*1e3:.0f} ms")
+
+    t0 = time.monotonic()
+    keys = np.concatenate([p[0] for p in parts]) if parts else np.zeros(0, np.uint64)
+    fv = np.concatenate([p[1] for p in parts]) if parts else np.zeros(0)
+    counts = np.concatenate([p[2] for p in parts]) if parts else np.zeros(0, np.int64)
+    branches = np.concatenate([p[3] for p in parts]) if parts else np.zeros(0, np.uint32)
+    scores = np.concatenate([p[4] for p in parts]) if parts else np.zeros(0, np.float32)
+    keys, fv, offsets, branches, scores, positions = _sort_batch(
+        keys, fv, counts, branches, scores, None)
+    db.set_data(keys, fv.astype(np.float32), offsets, branches, scores,
+                positions)
+    timings["sort"] = time.monotonic() - t0
+    if output_filename:
+        t_s = time.monotonic()
+        serialize.save(db, output_filename, compressed=not uncompressed)
+        timings["serialize"] = time.monotonic() - t_s
+    timings["filter_merge"] = time.monotonic() - t0
+
+    if verbose > 0:
+        print(f"Filtering and merge time: {timings['filter_merge']*1e3:.0f} ms")
+        print("Building database: Done.")
+        if output_filename:
+            print(f"Output: {output_filename}")
+    return BuildResult(db, num_explored, timings)

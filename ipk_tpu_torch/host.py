@@ -1,0 +1,274 @@
+"""Host-side (numpy) stages of the build: key batching, progress, prefetch,
+survivor extraction with the mif0/random filter, and the (fv, key) sort.
+
+These are copies, verbatim in behaviour, of the numpy helpers of
+``ipk_tpu/builder.py`` (``log_threshold_f32``, ``pick_key_batches``,
+``_Progress``, ``BuildResult``, ``_prefetch``, ``_extract_batch``,
+``_extract_compact``, ``_sort_batch``, ``_apply_range_gather``,
+``_range_gather``). They are copied because that module imports jax at the
+top, and the port runs where jax is not installed. One shared jax-free
+module for both packages is ROADMAP.md's follow-up.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import queue
+import sys
+import threading
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+
+from ipk_tpu.core.filter import (RandomFilterStream, _load_native,
+                                 mif0_filter_values_entries, score_threshold)
+from ipk_tpu.db import PhyloKmerDB
+from ipk_tpu.seq import SeqTraits, dense_index_to_key
+from ipk_tpu.utils.threads import host_threads
+
+__all__ = ["log_threshold_f32", "pick_key_batches", "BuildResult"]
+
+
+def log_threshold_f32(omega: float, sigma: int, k: int) -> np.float32:
+    """log10((omega/sigma)^k) as f32 — the eps passed to the enumeration DP
+    (``db_builder.cpp:640``)."""
+    return np.float32(np.log10(score_threshold(omega, sigma, k)))
+
+
+def pick_key_batches(B: int, nl: int, nr: int,
+                     budget_bytes: int = 2 << 30,
+                     vmem_tile_bytes: int = 4 << 20) -> int:
+    """Number of prefix-axis batches so each A batch fits the host/device
+    budget, each per-ghost accumulator tile [nl/batches, nr] stays within
+    ``vmem_tile_bytes``, and each batch's flat indices fit int32. Equal
+    slices, preferring a per-batch prefix count that is a multiple of 8."""
+    total = B * nl * nr * 4
+    batches = max(1, -(-total // budget_bytes),
+                  -(-(nl * nr * 4) // vmem_tile_bytes),
+                  -(-(B * nl * nr) // ((1 << 31) - 1)))
+    for b in range(batches, nl + 1):
+        if nl % b == 0 and (nl // b) % 8 == 0:
+            return b
+    while batches < nl and nl % batches != 0:
+        batches += 1
+    return min(batches, nl)
+
+
+class _Progress:
+    """Per-key-batch stage-1 progress at verbosity >= 1 (the reference's
+    per-branch-group bar, ``db_builder.cpp:588-600``). In-place bar on a
+    TTY, one line per update otherwise."""
+
+    def __init__(self, label: str, total: int, enabled: bool):
+        self.label, self.total = label, total
+        self.enabled = enabled and total > 0
+        self.tty = sys.stderr.isatty()
+        self.done = 0
+        if self.enabled:
+            self._draw()
+
+    def step(self, n: int = 1) -> None:
+        if not self.enabled:
+            return
+        self.done += n
+        self._draw()
+
+    def _draw(self) -> None:
+        frac = self.done / self.total
+        if self.tty:
+            width = 30
+            fill = int(width * frac)
+            sys.stderr.write(f"\r{self.label} [{'#' * fill}"
+                             f"{'.' * (width - fill)}] "
+                             f"{self.done}/{self.total}")
+            if self.done >= self.total:
+                sys.stderr.write("\n")
+            sys.stderr.flush()
+        else:
+            print(f"{self.label}: {self.done}/{self.total}", flush=True)
+
+
+class BuildResult:
+    def __init__(self, db: PhyloKmerDB, num_explored: int,
+                 timings: Dict[str, float]):
+        self.db = db
+        self.num_explored = num_explored
+        self.timings = timings
+
+
+def _prefetch(gen: Iterator, depth: int = 1) -> Iterator:
+    """Run the batch generator one step ahead in a worker thread, so the next
+    batch's device work and device→host copy overlap the main thread's
+    extraction of the current one."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+
+    def worker():
+        try:
+            for item in gen:
+                q.put(item)
+            q.put(sentinel)
+        except BaseException as e:          # surfaced in the consumer
+            q.put(e)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
+
+
+def _extract_batch(A: np.ndarray, lo: int, pos: Optional[np.ndarray],
+                   group_ids: List[int], k: int, traits: SeqTraits,
+                   total_num_groups: int, threshold: float,
+                   filter_type: str, rng_stream: Optional[RandomFilterStream],
+                   merge_branches: bool):
+    """Dense batch A[B, chunk] → (keys, fv, counts, branches, scores,
+    positions)."""
+    mask = np.isfinite(A)
+    if merge_branches:
+        best_b = A.argmax(axis=0)
+        cols_any = mask.any(axis=0)
+        best_mask = np.zeros_like(mask)
+        best_mask[best_b[cols_any], np.flatnonzero(cols_any)] = True
+        mask = best_mask
+
+    present = mask.any(axis=0)
+    cols = np.flatnonzero(present)
+    keys = dense_index_to_key(cols.astype(np.uint64) + np.uint64(lo),
+                              k, traits)
+
+    MT = np.ascontiguousarray(mask[:, cols].T)   # [K', B]
+    flat = MT.ravel()
+    counts = MT.sum(axis=1)
+    branches = np.broadcast_to(
+        np.asarray(group_ids, dtype=np.uint32), MT.shape).ravel()[flat]
+    scores = np.ascontiguousarray(A[:, cols].T).ravel()[flat]
+    positions = (np.ascontiguousarray(pos[:, cols].T).ravel()[flat]
+                 .astype(np.uint32) if pos is not None else None)
+
+    if filter_type == "mif0":
+        offsets = np.zeros(len(cols) + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        fv = mif0_filter_values_entries(scores, None, len(cols),
+                                        total_num_groups, threshold,
+                                        offsets=offsets)
+    elif filter_type == "random":
+        fv = rng_stream.take(len(cols)).astype(np.float64)
+    else:
+        raise RuntimeError("Error: Unsupported filter type.")
+    return keys, fv, counts, branches, scores, positions
+
+
+def _extract_compact(flat_idx: np.ndarray, scores: np.ndarray, B: int,
+                     chunk: int, lo: int, group_ids, k: int,
+                     traits: SeqTraits, total_num_groups: int,
+                     threshold: float, filter_type: str,
+                     rng_stream: Optional[RandomFilterStream],
+                     merge_branches: bool):
+    """Compacted batch → unsorted DB arrays (same contract as
+    :func:`_extract_batch`). flat_idx is row-major over the TRANSPOSED
+    accumulator [chunk, B]: ascending flat index is already key-major with
+    groups ascending within a key (the DB's entry order)."""
+    flat_idx = np.asarray(flat_idx)
+    scores = np.asarray(scores, dtype=np.float32)
+    key_local, b_rows = np.divmod(flat_idx, np.int32(B))
+    if merge_branches:
+        # best entry per key (ties -> lowest group row)
+        sub = np.lexsort((b_rows, -scores.astype(np.float64), key_local))
+        ks, ss, bs = key_local[sub], scores[sub], b_rows[sub]
+        first = np.ones(len(ks), dtype=bool)
+        first[1:] = ks[1:] != ks[:-1]
+        key_local, scores, b_rows = ks[first], ss[first], bs[first]
+
+    first = np.ones(len(key_local), dtype=bool)
+    if len(key_local):
+        first[1:] = key_local[1:] != key_local[:-1]
+    bounds = np.flatnonzero(first)
+    offsets = np.append(bounds, len(key_local)).astype(np.int64)
+    uniq = key_local[bounds]
+    keys = dense_index_to_key(uniq.astype(np.uint64) + np.uint64(lo), k,
+                              traits)
+    counts = np.diff(offsets)
+    branches = np.asarray(group_ids, dtype=np.uint32)[b_rows]
+
+    if filter_type == "mif0":
+        fv = mif0_filter_values_entries(scores, None, len(uniq),
+                                        total_num_groups, threshold,
+                                        offsets=offsets)
+    elif filter_type == "random":
+        fv = rng_stream.take(len(uniq)).astype(np.float64)
+    else:
+        raise RuntimeError("Error: Unsupported filter type.")
+    return keys, fv, counts, branches, np.asarray(scores, np.float32), None
+
+
+def _sort_batch(keys, fv, counts, branches, scores, positions):
+    """Reorder one batch's arrays ascending by (fv, key)."""
+    order = np.lexsort((keys, fv))
+    offsets = np.zeros(len(keys) + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    new_offsets, branches, scores, positions = _apply_range_gather(
+        offsets, np.asarray(counts, dtype=np.int64), order, branches, scores,
+        positions)
+    return (keys[order], fv[order], new_offsets, branches, scores, positions)
+
+
+def _apply_range_gather(offs, counts, order, branches, scores, positions):
+    """Concatenate entry ranges [offs[i], offs[i]+counts[i]) for i in
+    ``order``, applied to the entry columns: the entry permutation behind
+    the global (fv, key) sort. Threaded native implementation
+    (``native/mif0_filter.cpp::ipk_range_gather_apply``) with a numpy
+    fallback."""
+    new_offsets = np.zeros(len(order) + 1, dtype=np.int64)
+    np.cumsum(counts[order], out=new_offsets[1:])
+    lib = _load_native()
+    if lib is not None and hasattr(lib, "ipk_range_gather_apply"):
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        offs = np.ascontiguousarray(offs, np.int64)
+        counts = np.ascontiguousarray(counts, np.int64)
+        order = np.ascontiguousarray(order, np.int64)
+        branches = np.ascontiguousarray(branches, np.uint32)
+        scores = np.ascontiguousarray(scores, np.float32)
+        br_out = np.empty_like(branches)
+        sc_out = np.empty_like(scores)
+        if positions is not None:
+            positions = np.ascontiguousarray(positions, np.uint32)
+            pos_out = np.empty_like(positions)
+            pos_in_p = positions.ctypes.data_as(u32p)
+            pos_out_p = pos_out.ctypes.data_as(u32p)
+        else:
+            pos_out, pos_in_p, pos_out_p = None, u32p(), u32p()
+        nthreads = host_threads("IPK_TPU_FILTER_THREADS")
+        lib.ipk_range_gather_apply(
+            offs.ctypes.data_as(i64p), counts.ctypes.data_as(i64p),
+            order.ctypes.data_as(i64p), new_offsets.ctypes.data_as(i64p),
+            np.int64(len(order)), branches.ctypes.data_as(u32p),
+            scores.ctypes.data_as(f32p), pos_in_p,
+            br_out.ctypes.data_as(u32p), sc_out.ctypes.data_as(f32p),
+            pos_out_p, np.int32(nthreads))
+        return new_offsets, br_out, sc_out, pos_out
+    gather = _range_gather(offs, counts, order)
+    return (new_offsets, branches[gather], scores[gather],
+            None if positions is None else positions[gather])
+
+
+def _range_gather(offs: np.ndarray, counts: np.ndarray,
+                  order: np.ndarray) -> np.ndarray:
+    """Entry-gather permutation for reordering variable-length entry runs:
+    concatenation of ranges [offs[i], offs[i]+counts[i]) for i in order."""
+    reps = counts[order]
+    total = int(reps.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.int64)
+    starts = offs[order]
+    out_offs = np.zeros(len(order) + 1, dtype=np.int64)
+    np.cumsum(reps, out=out_offs[1:])
+    idx = np.arange(total, dtype=np.int64)
+    run = np.repeat(np.arange(len(order), dtype=np.int64), reps)
+    return starts[run] + (idx - out_offs[run])
