@@ -7,13 +7,23 @@ Run from the root of a checkout, on a machine with one CUDA card, nvcc and
 nvidia-smi. Imports nothing of JAX. Every phase raises on failure:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile the kernels of ipk_tpu_torch/core/csrc with nvcc.
-3. kernel  — combine_max on the card against its plain PyTorch version
-             (combine_max_ref) on the same inputs, bit-equal A and counts
-             (tolerance: none, the arithmetic is exactly rounded f32), at
-             ragged random halves, AA k=4 halves (nl = nr = 400) and every
-             key batch the phase-5 build launches on its real halves;
-             kernel and plain times.
+2. build   — compile the kernels of ipk_tpu_torch/core/csrc with nvcc, one
+             process per source, all started together.
+3. kernel  — each kernel on the card against its plain PyTorch version on
+             the same inputs, bit-equal (tolerance: none, the arithmetic is
+             exactly rounded f32 and the sorts are total orders); kernel and
+             plain times:
+             * combine_max against combine_max_ref at ragged random halves,
+               AA k=4 halves (nl = nr = 400) and every key batch the phase-5
+               build launches on its real halves;
+             * staircase_select against staircase_select_ref at the shapes
+               of tests/test_staircase_kernels.py with sort_l on and off,
+               sign-bit codes with ±0.0 and tied scores, an overflowing
+               window, CL = CR = 4096 (cap 4096) and 8192 (cap 8192); then
+               the first 32-ghost chunk of the phase-7 build through
+               sparse.enumerate_sparse_many with the kernel and with
+               use_kernel=False, bit-equal lists and overflow, and each of
+               its kernel launches again against the plain version.
 4. goldens — tests/data/golden D-dna (k=7) and D-aa (k=4) built on the card,
              payload-equal to the committed databases; a small amino build
              payload-equal between the card and the CPU.
@@ -21,9 +31,20 @@ nvidia-smi. Imports nothing of JAX. Every phase raises on failure:
              ghost matrices, W=1493) built in process and again through
              ``python -m ipk_tpu_torch build``; byte-identical files; timings,
              explored tuples, stage-1 tuples/s and peak device memory.
+6. sparse goldens — D-dna and D-aa rebuilt on the card through the sparse
+             path (``build(..., sparse=True)``), payload-equal to the
+             goldens; a 12-taxon x 60-site amino project at k=6, omega 4.0
+             (sparse by sigma^k) built on the card through ``python -m
+             ipk_tpu_torch build`` and on the CPU, payload-equal, non-empty.
+7. sparse scale — the phase-5 project at DNA k=12, omega 2.0 (sparse by
+             sigma^k): timings, explored tuples, k-mers, entries, settled
+             caps, re-dispatches, peak device memory, staircase launches;
+             and a 64-taxon x 600-site DNA k=10 project built dense and
+             forced sparse, byte-identical.
 
-Kernel launch counts are reset just before phase 4 and read after phase 5,
-so they count the main path only. The line before the last is a JSON
+Kernel launch counts are reset just before each main path and read just
+after it: combine_max over phases 4-5 (the dense path), staircase_select
+over phases 6-7 (the sparse path). The line before the last is a JSON
 object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, when CUDA is unavailable or the
@@ -42,6 +63,21 @@ import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SCALE = dict(num_leaves=256, width=1500, seed=9, k=8, omega=1.5)
+#: the phase-7 sparse build: the phase-5 project at DNA k=12
+SPARSE_SCALE = dict(k=12, omega=2.0, cap=4096)
+#: the dense-vs-sparse anchor at a middle size
+MID = dict(num_leaves=64, width=600, seed=13, k=10, omega=2.0)
+#: phase-3 staircase shapes: (label, G, W, CL, CR, cap, input options)
+STAIRCASE_SHAPES = [
+    ("tiny, unaligned", 1, 5, 20, 33, 128, {}),
+    ("multi-tile L", 2, 9, 130, 200, 256, {}),
+    ("wide L, narrow R", 1, 3, 300, 40, 384, {}),
+    ("sign-bit codes, +-0.0 and ties", 2, 4, 64, 64, 200,
+     {"signed_zeros": True, "sign_bit": True}),
+    ("overflow (all survive)", 1, 4, 40, 40, 128, {"all_survive": True}),
+    ("CL = CR = 4096", 1, 64, 4096, 4096, 4096, {}),
+    ("CL = CR = 8192", 1, 16, 8192, 8192, 8192, {}),
+]
 
 
 def log(msg: str) -> None:
@@ -78,7 +114,8 @@ def phase_build():
     log(f"[build] {_build.LIB_PATH} in {time.monotonic() - t0:.3f} s "
         f"(nvcc {_build.build_seconds:.3f} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line
+                or "Compiling entry" in line):
             log(f"[build] ptxas: {line.strip()}")
 
 
@@ -185,6 +222,156 @@ def phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir):
     return res
 
 
+def staircase_inputs(torch, G, W, CL, CR, seed, signed_zeros=False,
+                     sign_bit=False, all_survive=False):
+    """Seeded survivor lists on the card: rounded (tied) scores, pruned
+    -inf entries, optionally ±0.0 scores, codes with bit 31 set, or a
+    threshold every pair passes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sL = np.round(rng.uniform(-3, 0, (G, W, CL)), 1).astype(np.float32)
+    sR = np.round(rng.uniform(-3, 0, (G, W, CR)), 1).astype(np.float32)
+    sL[rng.random(sL.shape) < 0.1] = -np.inf
+    sR[rng.random(sR.shape) < 0.1] = -np.inf
+    if signed_zeros:
+        sL[..., ::5] = -0.0
+        sR[..., 1::4] = -0.0
+        sR[..., 2::4] = 0.0
+    cL = rng.permutation(G * W * CL).astype(np.int64).reshape(G, W, CL)
+    cR = rng.permutation(G * W * CR).astype(np.int64).reshape(G, W, CR)
+    if sign_bit:
+        cL = cL * 0x20000001 % (1 << 32)
+        cR = cR * 0x30000001 % (1 << 32)
+    eps = rng.uniform(-3.5, -2.5, (G, W)).astype(np.float32)
+    if all_survive:
+        sL, sR = np.maximum(sL, -1.0), np.maximum(sR, -1.0)
+        eps[:] = -100.0
+    return tuple(torch.from_numpy(x).cuda() for x in (sL, cL, sR, cR, eps))
+
+
+def compare_staircase(torch, label, args, cap, sort_l, reps=5, plain_reps=2):
+    """staircase_select vs staircase_select_ref on one input: raises unless
+    cl, cr, scores (bit patterns) and totals are equal."""
+    from ipk_tpu_torch.core import kernels, sparse
+    got = kernels.staircase_select(*args, cap=cap, sort_l=sort_l)
+    ref = sparse.staircase_select_ref(*args, cap=cap, sort_l=sort_l)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(
+        (got[0], got[1], got[2].view(torch.int32), got[3]),
+        (ref[0], ref[1], ref[2].view(torch.int32), ref[3]))]
+    if not all(same):
+        raise RuntimeError(
+            f"[kernel] staircase {label}: kernel differs from "
+            f"staircase_select_ref (cl, cr, scores, totals equal: {same})")
+    live = torch.isfinite(ref[2])
+    err = (float((got[2][live] - ref[2][live]).abs().max())
+           if live.any() else 0.0)
+    ms = time_ms(torch, lambda: kernels.staircase_select(
+        *args, cap=cap, sort_l=sort_l), reps)
+    plain_ms = time_ms(torch, lambda: sparse.staircase_select_ref(
+        *args, cap=cap, sort_l=sort_l), plain_reps)
+    G, W, CL = args[0].shape
+    log(f"[kernel] staircase {label}: G={G} W={W} CL={CL} "
+        f"CR={args[2].shape[2]} cap={cap} sort_l={sort_l} bit-equal "
+        f"({int(ref[3].sum())} survivors, max total {int(ref[3].max())}); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir, tmp):
+    import numpy as np
+    from ipk_tpu_torch.builder import stage1_inputs
+    from ipk_tpu_torch.core import kernels, sparse
+    from ipk_tpu_torch.pipeline import BuildParams, prepare
+    errs = []
+    for n, (label, G, W, CL, CR, cap, opts) in enumerate(STAIRCASE_SHAPES):
+        args = staircase_inputs(torch, G, W, CL, CR, seed=n, **opts)
+        for sort_l in ((True, False) if n < 3 else (True,)):
+            errs.append(compare_staircase(
+                torch, label, args, cap, sort_l,
+                plain_reps=1 if CL >= 4096 else 2)["max_abs_err"])
+        if opts.get("all_survive"):
+            tot = kernels.staircase_select(*args, cap=cap)[3]
+            if not bool((tot == CL * CR).all()):
+                raise RuntimeError("[kernel] staircase overflow: totals are "
+                                   "not the true survivor count")
+        del args
+
+    # the first chunk of the phase-7 build, cut as the builder cuts it
+    k, omega, cap = SPARSE_SCALE["k"], SPARSE_SCALE["omega"], \
+        SPARSE_SCALE["cap"]
+    inp = prepare(BuildParams(
+        refalign=fasta_file, reftree=tree_file, ar_dir=ar_dir,
+        working_dir=os.path.join(tmp, "wd_kernel_sparse"), kmer_size=k,
+        omega=omega, verbosity=0, device="cuda"))
+    traits = inp.traits
+    s1 = stage1_inputs(inp.original_tree, inp.extended_tree,
+                       inp.ghost_mapping, inp.ar_mapping, inp.label_rows,
+                       inp.P, sigma=traits.alphabet_size, kmer_size=k,
+                       omega=omega)
+    caps = sparse.probe_caps(s1.P_all, s1.prefix_all, s1.eps, k=k,
+                             sigma=traits.alphabet_size, cap=cap)
+    g1 = max(1, 32 // s1.ghosts_per_group) * s1.ghosts_per_group
+    chunk = dict(k=k, sigma=traits.alphabet_size,
+                 bits=traits.bits_per_symbol, cap=cap, caps=caps,
+                 device="cuda")
+    recorded = []
+    select = kernels.staircase_select
+
+    def recording(*args, **kw):
+        recorded.append(([a.clone() for a in args], kw))
+        return select(*args, **kw)
+
+    # the wrapper counts on the module attribute of its name, which is
+    # `recording` while it is installed
+    recording.launches = 0
+    kernels.staircase_select = recording
+    try:
+        st_k = {}
+        out_k = sparse.enumerate_sparse_many(
+            s1.P_all[:g1], s1.prefix_all[:g1], s1.eps, stats=st_k, **chunk)
+    finally:
+        kernels.staircase_select = select
+    st_p = {}
+    out_p = sparse.enumerate_sparse_many(
+        s1.P_all[:g1], s1.prefix_all[:g1], s1.eps, use_kernel=False,
+        stats=st_p, **chunk)
+    same = (np.array_equal(out_k[0], out_p[0])
+            and np.array_equal(out_k[1].view(np.uint32),
+                               out_p[1].view(np.uint32))
+            and np.array_equal(out_k[2], out_p[2]))
+    if not same or not recorded:
+        raise RuntimeError(
+            f"[kernel] staircase on the first {g1}-ghost chunk of the DNA "
+            f"k={k} build: kernel route and use_kernel=False differ, or the "
+            f"kernel never ran ({len(recorded)} launches)")
+    live = int(np.isfinite(out_k[1]).sum())
+    log(f"[kernel] staircase, first {g1}-ghost chunk of the DNA k={k} "
+        f"omega={omega} scale project (W={out_k[1].shape[1]}, caps "
+        f"{sparse._caps_key(st_k['final_caps'])}): enumerate_sparse_many "
+        f"bit-equal with the kernel and with use_kernel=False (codes, "
+        f"scores, overflow; {live} survivors, "
+        f"{st_k.get('redispatches', 0)} re-dispatches); device_compute "
+        f"kernel route {st_k['device_compute']:.6f} s, plain route "
+        f"{st_p['device_compute']:.6f} s")
+    runs = []
+    for n, (args, kw) in enumerate(recorded):
+        label = (f"chunk launch {n + 1}/{len(recorded)}")
+        runs.append(compare_staircase(torch, label, args, kw["cap"],
+                                      kw["sort_l"], reps=5, plain_reps=1))
+    del recorded
+    torch.cuda.empty_cache()
+    res = dict(max_abs_err=max(errs + [r["max_abs_err"] for r in runs]),
+               ms=sum(r["ms"] for r in runs) / len(runs),
+               plain_ms=sum(r["plain_ms"] for r in runs) / len(runs))
+    log(f"[kernel] staircase on the chunk: {len(runs)} launches per chunk "
+        f"run, kernel {res['ms']:.4f} ms per launch, "
+        f"{res['ms'] * len(runs):.4f} ms per chunk; plain "
+        f"{res['plain_ms']:.4f} ms per launch, "
+        f"{res['plain_ms'] * len(runs):.4f} ms per chunk")
+    return res
+
+
 def phase_goldens(torch, tmp):
     from ipk_tpu_torch.core import kernels
     from ipk_tpu_torch.pipeline import BuildParams, build_database, get_traits
@@ -279,6 +466,155 @@ def phase_scale(torch, tmp, tree_file, fasta_file, ar_dir, kernel_tuples):
         f"{rate:.4e}; max_memory_allocated {peak} B")
 
 
+def build_sparse(params, out):
+    """prepare + builder.build forced onto the sparse path (as a caller of
+    ``build(..., sparse=True)`` would); returns the BuildResult."""
+    from ipk_tpu_torch import builder
+    from ipk_tpu_torch.pipeline import prepare
+    inp = prepare(params)
+    return builder.build(
+        inp.original_tree, inp.extended_tree, inp.ghost_mapping,
+        inp.ar_mapping, inp.label_rows, inp.P, traits=inp.traits,
+        kmer_size=params.kmer_size, omega=params.omega, sparse=True,
+        sparse_cap=params.max_candidates, output_filename=out,
+        device=params.device, verbose=0)
+
+
+def phase_sparse_goldens(torch, tmp):
+    from ipk_tpu_torch.core import kernels
+    from ipk_tpu_torch.pipeline import BuildParams, build_database
+    for proj, states, k, omega, golden in [
+            ("D-dna", "nucl", 7, 2.0, "DB_k7_o2.0.ipk"),
+            ("D-aa", "amino", 4, 10.0, "DB_k4_o10.ipk")]:
+        root = os.path.join(REPO, "tests", "data", "golden", proj)
+        out = os.path.join(tmp, f"{proj}_sparse.ipk")
+        before = kernels.staircase_select.launches
+        result = build_sparse(BuildParams(
+            refalign=os.path.join(root, "reference.fasta"),
+            reftree=os.path.join(root, "tree.newick"), states=states,
+            working_dir=os.path.join(tmp, f"wd_{proj}_sparse"),
+            ar_dir=os.path.join(root, "ar_out"), kmer_size=k, omega=omega,
+            verbosity=0, device="cuda"), out)
+        if payload(out) != payload(os.path.join(root, golden)):
+            raise RuntimeError(f"[sparse goldens] {proj}: the sparse build's "
+                               f"payload differs from the committed {golden}")
+        log(f"[sparse goldens] {proj} k={k} through the sparse path: "
+            f"payload-equal to {golden} ({result.db.size()} k-mers, "
+            f"{result.num_explored} tuples, "
+            f"{kernels.staircase_select.launches - before} staircase "
+            f"launches, caps {result.stats.get('final_caps')})")
+    # amino at k=6: sparse by sigma^k; the card through the CLI, the CPU in
+    # process
+    aa = os.path.join(tmp, "aa")
+    k, omega = 6, 4.0
+    card = os.path.join(aa, "DB_k6_cuda.ipk")
+    run_cli(["-r", os.path.join(aa, "reference.fasta"), "-t",
+             os.path.join(aa, "tree.newick"), "-s", "amino", "-m", "LG",
+             "-w", os.path.join(aa, "wd_k6_cuda"), "-k", str(k), "--omega",
+             str(omega), "--ar-dir", os.path.join(aa, "ar_out"), "-o", card,
+             "-v", "0", "--device", "cuda"], tmp, "[sparse goldens] amino")
+    cpu = os.path.join(aa, "DB_k6_cpu.ipk")
+    result = build_database(BuildParams(
+        refalign=os.path.join(aa, "reference.fasta"),
+        reftree=os.path.join(aa, "tree.newick"), states="amino",
+        working_dir=os.path.join(aa, "wd_k6_cpu"),
+        ar_dir=os.path.join(aa, "ar_out"), kmer_size=k, omega=omega,
+        output_filename=cpu, verbosity=0, device="cpu"))
+    if (payload(card) != payload(cpu) or result.db.size() == 0
+            or not result.stats.get("final_caps")):
+        raise RuntimeError("[sparse goldens] amino k=6: card and CPU builds "
+                           "differ, are empty or did not take the sparse "
+                           "path")
+    log(f"[sparse goldens] amino k={k} omega={omega} project: card (CLI) "
+        f"payload-equal to CPU ({result.db.size()} k-mers, "
+        f"{result.num_explored} tuples, caps {result.stats['final_caps']})")
+
+
+def run_cli(args, cwd, label):
+    t0 = time.monotonic()
+    cli = subprocess.run(
+        [sys.executable, "-m", "ipk_tpu_torch", "build", *args],
+        cwd=cwd, capture_output=True, text=True, timeout=900,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p])})
+    if cli.returncode != 0:
+        raise RuntimeError(f"{label}: python -m ipk_tpu_torch build failed "
+                           f"({cli.returncode}):\n{cli.stderr[-4000:]}")
+    return time.monotonic() - t0
+
+
+def phase_sparse_scale(torch, tmp, tree_file, fasta_file, ar_dir):
+    import numpy as np
+    from fixtures import make_project
+    from ipk_tpu_torch.core import kernels
+    from ipk_tpu_torch.pipeline import BuildParams, build_database
+    k, omega, cap = (SPARSE_SCALE["k"], SPARSE_SCALE["omega"],
+                     SPARSE_SCALE["cap"])
+    out = os.path.join(tmp, "sparse_scale.ipk")
+    before = kernels.staircase_select.launches
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    result = build_database(BuildParams(
+        refalign=fasta_file, reftree=tree_file, kmer_size=k, omega=omega,
+        max_candidates=cap, ar_dir=ar_dir,
+        working_dir=os.path.join(tmp, "wd_sparse_scale"),
+        output_filename=out, verbosity=0, device="cuda"))
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = kernels.staircase_select.launches - before
+    db = result.db
+    if (db.size() == 0 or not np.isfinite(db.scores).all() or launched <= 0
+            or not result.stats.get("final_caps")):
+        raise RuntimeError(f"[sparse scale] empty database, non-finite "
+                           f"scores, or the sparse path / kernel did not run "
+                           f"({launched} staircase launches)")
+    timings = {key: (round(v, 6) if isinstance(v, float) else v)
+               for key, v in result.timings.items()}
+    log(f"[sparse scale] {SCALE['num_leaves']} taxa x {SCALE['width']} "
+        f"sites, DNA k={k} omega={omega}: {db.size()} k-mers, "
+        f"{db.num_entries()} entries; num_explored {result.num_explored}; "
+        f"{launched} staircase launches; "
+        f"{result.stats.get('redispatches', 0)} re-dispatches; settled caps "
+        f"{sorted(result.stats['final_caps'].items())}")
+    log(f"[sparse scale] timings {json.dumps(timings)}")
+    log(f"[sparse scale] build wall {wall:.3f} s; max_memory_allocated "
+        f"{peak} B")
+
+    # anchor at a middle size: dense and forced-sparse byte-identical
+    mid = os.path.join(tmp, "mid")
+    os.makedirs(mid)
+    tree_m, fasta_m, ar_m = make_project(
+        pathlib.Path(mid), num_leaves=MID["num_leaves"], width=MID["width"],
+        seed=MID["seed"])
+    params = dict(refalign=fasta_m, reftree=tree_m, kmer_size=MID["k"],
+                  omega=MID["omega"], ar_dir=ar_m, verbosity=0,
+                  device="cuda")
+    dense_out = os.path.join(mid, "dense.ipk")
+    t0 = time.monotonic()
+    r_dense = build_database(BuildParams(
+        working_dir=os.path.join(mid, "wd_dense"),
+        output_filename=dense_out, **params))
+    t_dense = time.monotonic() - t0
+    sparse_out = os.path.join(mid, "sparse.ipk")
+    t0 = time.monotonic()
+    r_sparse = build_sparse(BuildParams(
+        working_dir=os.path.join(mid, "wd_sparse"), **params), sparse_out)
+    t_sparse = time.monotonic() - t0
+    if (open(dense_out, "rb").read() != open(sparse_out, "rb").read()
+            or r_dense.db.size() == 0):
+        raise RuntimeError(f"[sparse scale] DNA k={MID['k']} anchor: dense "
+                           "and sparse builds are not byte-identical (or "
+                           "empty)")
+    log(f"[sparse scale] {MID['num_leaves']} taxa x {MID['width']} sites, "
+        f"DNA k={MID['k']} omega={MID['omega']}: dense (combine_max) and "
+        f"forced-sparse (staircase) builds byte-identical "
+        f"({r_dense.db.size()} k-mers, {r_dense.db.num_entries()} entries; "
+        f"explored dense {r_dense.num_explored}, sparse "
+        f"{r_sparse.num_explored}); wall dense {t_dense:.3f} s, sparse "
+        f"{t_sparse:.3f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "ipk_tpu_torch")):
         print("chip_smoke.py: the ipk_tpu_torch package is not beside this "
@@ -300,21 +636,39 @@ def main() -> int:
             width=SCALE["width"], seed=SCALE["seed"])
         log(f"[setup] scale project written in {time.monotonic() - t0:.1f} s")
         kres = phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir)
+        sres = phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir,
+                                      tmp)
+        # the dense main path
         kernels.combine_max.launches = 0
+        kernels.staircase_select.launches = 0
         phase_goldens(torch, tmp)
         phase_scale(torch, tmp, tree_file, fasta_file, ar_dir,
                     kres["tuples"])
-        launches = kernels.combine_max.launches
-        if launches <= 0:
-            raise RuntimeError("combine_max was not launched on the main path")
+        dense_launches = kernels.combine_max.launches
+        # the sparse main path
+        kernels.combine_max.launches = 0
+        kernels.staircase_select.launches = 0
+        phase_sparse_goldens(torch, tmp)
+        phase_sparse_scale(torch, tmp, tree_file, fasta_file, ar_dir)
+        sparse_launches = kernels.staircase_select.launches
+        if dense_launches <= 0 or sparse_launches <= 0:
+            raise RuntimeError(
+                f"a kernel was not launched on its main path (combine_max "
+                f"{dense_launches}, staircase_select {sparse_launches})")
+        log(f"[done] smoke wall {time.monotonic() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"kernels": [{
         "name": "combine_max", "route": "cuda",
         "source": "ipk_tpu_torch/core/csrc/combine_max.cu",
         "replaces": "ipk_tpu/core/pallas_kernels.py:163",
-        "launches": launches, "max_abs_err": kres["max_abs_err"],
-        "ms": kres["ms"], "plain_ms": kres["plain_ms"]}]}))
+        "launches": dense_launches, "max_abs_err": kres["max_abs_err"],
+        "ms": kres["ms"], "plain_ms": kres["plain_ms"]}, {
+        "name": "staircase_select", "route": "cuda",
+        "source": "ipk_tpu_torch/core/csrc/staircase_select.cu",
+        "replaces": "ipk_tpu/core/pallas_kernels.py:404",
+        "launches": sparse_launches, "max_abs_err": sres["max_abs_err"],
+        "ms": sres["ms"], "plain_ms": sres["plain_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -118,7 +118,10 @@ def _build_parser() -> argparse.ArgumentParser:
                         "gather pools AND the AR subprocess. 0 = auto.")
     b.add_argument("-o", "--output", default="", help="Output file name")
     b.add_argument("--on-disk", action="store_true")
-    b.add_argument("--max-candidates", type=int, default=4096)
+    b.add_argument("--max-candidates", type=int, default=4096,
+                   help="Per-window survivor-list capacity on the large-k "
+                        "(sparse) path, at most 8192; the build fails loudly "
+                        "if exceeded.")
     b.add_argument("--profile", dest="profile_dir", default="")
     b.add_argument("--device-mi", action="store_true")
     b.add_argument("--coordinator", default="")

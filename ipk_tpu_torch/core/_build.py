@@ -1,6 +1,7 @@
 """Builds the CUDA kernels of ``core/csrc/`` into one shared library.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into
 ``build/ipk_tpu_torch/libipk_kernels.so`` under the repository root, with a
 plain C interface that ``core.kernels`` binds through ``ctypes``. The
 library is built at first use, only from the sources in the checkout, and
@@ -24,8 +25,9 @@ CSRC_DIR = os.path.join(_PKG_DIR, "core", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "ipk_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libipk_kernels.so")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v", "-c"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -60,6 +62,20 @@ def _stale(srcs: list) -> bool:
     return any(os.path.getmtime(s) > built for s in srcs)
 
 
+def _run(cmds: list) -> str:
+    """Run the commands in parallel; raise with the output of the first that
+    fails, else return their joined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build_library() -> str:
     """Compile the kernels if the library is missing or older than a source;
     returns the library's path."""
@@ -68,20 +84,25 @@ def build_library() -> str:
     if not _stale(srcs):
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # build to a private name and rename, so a concurrent process never
-    # loads a half-written library
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    nvcc = _nvcc()
+    # private names, renamed at the end, so a concurrent process never loads
+    # a half-written library
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f".{tag}.o")
+            for src in srcs]
+    tmp = f"{LIB_PATH}.{tag}"
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.monotonic() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, LIB_PATH)
+    try:
+        log = _run([[nvcc, *COMPILE_FLAGS, "-o", obj, src]
+                    for src, obj in zip(srcs, objs)])
+        log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, LIB_PATH)
+    finally:
+        build_seconds = time.monotonic() - t0
+        for path in objs + [tmp]:
+            if os.path.exists(path):
+                os.remove(path)
+    build_log = log
     return LIB_PATH
 
 
@@ -98,6 +119,11 @@ def load() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_int, vp]
         lib.ipk_combine_max.restype = ctypes.c_int
+        ll = ctypes.c_longlong
+        lib.ipk_staircase_select.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, ctypes.c_int,
+            ctypes.c_int, vp]
+        lib.ipk_staircase_select.restype = ctypes.c_int
         lib.ipk_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ipk_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

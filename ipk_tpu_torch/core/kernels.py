@@ -19,7 +19,7 @@ import torch
 from . import _build
 from .dense import combine_max_ref
 
-__all__ = ["combine_max"]
+__all__ = ["combine_max", "staircase_select", "STAIRCASE_MAX_WIDTH"]
 
 
 def _check_eps(eps: torch.Tensor) -> float:
@@ -73,3 +73,85 @@ def combine_max(L: torch.Tensor, R: torch.Tensor, eps: torch.Tensor
 
 
 combine_max.launches = 0
+
+#: the kernel's widest list and cap (its shared-memory staging holds both
+#: lists padded to a power of two plus the row offsets: 160 KB at 8192)
+STAIRCASE_MAX_WIDTH = 8192
+
+
+def staircase_select(sL: torch.Tensor, cL: torch.Tensor, sR: torch.Tensor,
+                     cR: torch.Tensor, eps: torch.Tensor, *, cap: int,
+                     sort_l: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """Capacity-bounded threshold combine of two survivor lists per window.
+
+    sL/cL: [G, W, CL] float32 scores / int64 codes, sR/cR: [G, W, CR]
+    likewise, in any order; eps: [G, W] float32. Codes are int64 holding
+    unsigned 32-bit values in [0, 2^32) on both sides of the C boundary; the
+    kernel compares them as unsigned 32-bit. Returns (code_l, code_r
+    [G, W, cap] int64, scores [G, W, cap] float32, totals [G, W] int32): the
+    pairs with ``fl(sL[i] + sR[j]) > eps`` over the (score desc, code asc)
+    sorted views (L sorted only with ``sort_l``), row-major; dead slots are
+    (-inf, 0, 0); totals above ``cap`` mean the window overflowed.
+
+    CL, CR and cap may be at most :data:`STAIRCASE_MAX_WIDTH` on every
+    device, so a build fails alike on the CPU and on the card. CPU tensors
+    go to :func:`sparse.staircase_select_ref`; CUDA tensors to the kernel in
+    ``csrc/staircase_select.cu``.
+    """
+    if not (sL.dim() == 3 and cL.shape == sL.shape and sR.dim() == 3
+            and cR.shape == sR.shape and sL.shape[:2] == sR.shape[:2]
+            and eps.shape == sL.shape[:2]):
+        raise ValueError(
+            f"staircase_select: sL/cL {tuple(sL.shape)}/{tuple(cL.shape)}, "
+            f"sR/cR {tuple(sR.shape)}/{tuple(cR.shape)} and eps "
+            f"{tuple(eps.shape)} must be [G, W, CL], [G, W, CR] and [G, W]")
+    if (sL.dtype != torch.float32 or sR.dtype != torch.float32
+            or eps.dtype != torch.float32):
+        raise TypeError("staircase_select: scores and eps must be float32")
+    if cL.dtype != torch.int64 or cR.dtype != torch.int64:
+        raise TypeError(f"staircase_select: codes must be int64, got "
+                        f"{cL.dtype} and {cR.dtype}")
+    if len({t.device for t in (sL, cL, sR, cR, eps)}) != 1:
+        raise ValueError("staircase_select: all inputs must be on one device")
+    G, W, CL = sL.shape
+    CR = sR.shape[2]
+    if CL < 1 or CR < 1 or cap < 1:
+        raise ValueError(f"staircase_select: empty lists or cap (CL={CL}, "
+                         f"CR={CR}, cap={cap})")
+    if max(CL, CR, cap) > STAIRCASE_MAX_WIDTH:
+        raise ValueError(
+            f"staircase_select: lists of {CL} x {CR} with cap {cap} exceed "
+            f"the kernel's {STAIRCASE_MAX_WIDTH}; lower --max-candidates to "
+            f"{STAIRCASE_MAX_WIDTH} or less")
+    if sL.device.type == "cpu":
+        from .sparse import staircase_select_ref
+        return staircase_select_ref(sL, cL, sR, cR, eps, cap=cap,
+                                    sort_l=sort_l)
+    if sL.device.type != "cuda":
+        raise ValueError(f"staircase_select: unsupported device {sL.device}")
+    if not all(t.is_contiguous() for t in (sL, cL, sR, cR, eps)):
+        raise ValueError("staircase_select: inputs must be contiguous")
+    dev = sL.device
+    out_cl = torch.empty((G, W, cap), dtype=torch.int64, device=dev)
+    out_cr = torch.empty((G, W, cap), dtype=torch.int64, device=dev)
+    out_s = torch.empty((G, W, cap), dtype=torch.float32, device=dev)
+    totals = torch.empty((G, W), dtype=torch.int32, device=dev)
+    if G * W == 0:
+        return out_cl, out_cr, out_s, totals
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.ipk_staircase_select(
+        *(ctypes.c_void_p(t.data_ptr()) for t in
+          (sL, cL, sR, cR, eps, out_cl, out_cr, out_s, totals)),
+        G * W, CL, CR, cap, int(sort_l), dev.index, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(
+            f"staircase_select kernel launch failed: CUDA error {rc} "
+            f"({lib.ipk_cuda_error_string(rc).decode()})")
+    staircase_select.launches += 1
+    return out_cl, out_cr, out_s, totals
+
+
+staircase_select.launches = 0

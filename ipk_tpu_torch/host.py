@@ -4,10 +4,11 @@ survivor extraction with the mif0/random filter, and the (fv, key) sort.
 These are copies, verbatim in behaviour, of the numpy helpers of
 ``ipk_tpu/builder.py`` (``log_threshold_f32``, ``pick_key_batches``,
 ``_Progress``, ``BuildResult``, ``_prefetch``, ``_extract_batch``,
-``_extract_compact``, ``_sort_batch``, ``_apply_range_gather``,
-``_range_gather``). They are copied because that module imports jax at the
-top, and the port runs where jax is not installed. One shared jax-free
-module for both packages is ROADMAP.md's follow-up.
+``_extract_compact``, ``_extract_from_lists``, ``_extract_sorted_stream``,
+``_sort_batch``, ``_apply_range_gather``, ``_range_gather``). They are
+copied because that module imports jax at the top, and the port runs where
+jax is not installed. One shared jax-free module for both packages is
+ROADMAP.md's follow-up.
 """
 
 from __future__ import annotations
@@ -89,11 +90,16 @@ class _Progress:
 
 
 class BuildResult:
+    """The database, the explored-tuple count, the stage timings and, for a
+    sparse build, its telemetry in ``stats`` ("redispatches",
+    "final_caps")."""
+
     def __init__(self, db: PhyloKmerDB, num_explored: int,
-                 timings: Dict[str, float]):
+                 timings: Dict[str, float], stats: Optional[Dict] = None):
         self.db = db
         self.num_explored = num_explored
         self.timings = timings
+        self.stats = stats if stats is not None else {}
 
 
 def _prefetch(gen: Iterator, depth: int = 1) -> Iterator:
@@ -204,6 +210,64 @@ def _extract_compact(flat_idx: np.ndarray, scores: np.ndarray, B: int,
     else:
         raise RuntimeError("Error: Unsupported filter type.")
     return keys, fv, counts, branches, np.asarray(scores, np.float32), None
+
+
+def _extract_from_lists(per_branch, group_ids, total_num_groups: int,
+                        threshold: float, filter_type: str,
+                        rng_stream: Optional[RandomFilterStream],
+                        merge_branches: bool):
+    """Per-branch sparse lists → unsorted DB arrays (keys, fv, counts,
+    branches, scores, positions=None). Entry order per key = group order."""
+    if not per_branch:
+        z = np.zeros(0)
+        return (z.astype(np.uint64), z, z.astype(np.int64),
+                z.astype(np.uint32), z.astype(np.float32), None)
+    all_keys = np.concatenate([c for c, _ in per_branch])
+    all_scores = np.concatenate([s for _, s in per_branch])
+    all_border = np.concatenate(
+        [np.full(len(c), bi, dtype=np.int64)
+         for bi, (c, _) in enumerate(per_branch)])
+    order = np.lexsort((all_border, all_keys))  # key-major, group order
+    all_keys, all_scores, all_border = (all_keys[order], all_scores[order],
+                                        all_border[order])
+    return _extract_sorted_stream(all_keys, all_border, all_scores,
+                                  group_ids, total_num_groups, threshold,
+                                  filter_type, rng_stream, merge_branches)
+
+
+def _extract_sorted_stream(all_keys, all_border, all_scores, group_ids,
+                           total_num_groups: int, threshold: float,
+                           filter_type: str,
+                           rng_stream: Optional[RandomFilterStream],
+                           merge_branches: bool):
+    """(key, group)-sorted entry stream (per-pair max scores) → unsorted DB
+    arrays."""
+    if merge_branches:
+        # keep only the best-scoring entry per key (earliest group on ties)
+        sub = np.lexsort((all_border, -all_scores.astype(np.float64),
+                          all_keys))
+        ks, ss, bs = all_keys[sub], all_scores[sub], all_border[sub]
+        first = np.ones(len(ks), dtype=bool)
+        first[1:] = ks[1:] != ks[:-1]
+        all_keys, all_scores, all_border = ks[first], ss[first], bs[first]
+
+    first = np.ones(len(all_keys), dtype=bool)
+    first[1:] = all_keys[1:] != all_keys[:-1]
+    bounds = np.flatnonzero(first)
+    offsets = np.append(bounds, len(all_keys)).astype(np.int64)
+    keys = all_keys[bounds]
+    counts = np.diff(offsets)
+    branches = np.asarray(group_ids, dtype=np.uint32)[all_border]
+
+    if filter_type == "mif0":
+        fv = mif0_filter_values_entries(all_scores, None, len(keys),
+                                        total_num_groups, threshold,
+                                        offsets=offsets)
+    elif filter_type == "random":
+        fv = rng_stream.take(len(keys)).astype(np.float64)
+    else:
+        raise RuntimeError("Error: Unsupported filter type.")
+    return keys, fv, counts, branches, np.asarray(all_scores, np.float32), None
 
 
 def _sort_batch(keys, fv, counts, branches, scores, positions):

@@ -63,7 +63,7 @@ class BuildParams:
     algorithm: str = "DCLA"      # accepted; DCLA semantics always run
     convert_uo: bool = False
     write_reduction: str = ""
-    max_candidates: int = 4096   # sparse large-k path (not ported yet)
+    max_candidates: int = 4096   # survivor-list cap on the sparse large-k path
     profile_dir: str = ""        # not ported yet
     use_unrooted: bool = False
     merge_branches: bool = False
@@ -190,5 +190,6 @@ def build_database(p: BuildParams) -> Optional[BuildResult]:
                  merge_branches=p.merge_branches,
                  keep_positions=p.keep_positions,
                  output_filename=output, uncompressed=p.uncompressed,
-                 on_disk=p.on_disk, device_mi=p.device_mi, device=p.device,
+                 on_disk=p.on_disk, sparse_cap=p.max_candidates,
+                 device_mi=p.device_mi, device=p.device,
                  verbose=p.verbosity)

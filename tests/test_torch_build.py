@@ -75,11 +75,21 @@ def aa_project(tmp_path_factory):
         tmp, num_leaves=5, width=15, seed=5, traits=AA)
 
 
+@pytest.fixture(scope="module")
+def k12_project(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_k12")
+    return (tmp, "nucl", 12, 2.0) + make_project(tmp, num_leaves=5, width=30,
+                                                 seed=12)
+
+
 def build_pair(project, name, monkeypatch, key_batches=None, transfer=None,
-               **overrides):
+               sparse=False, **overrides):
     """(ipk_tpu DB path, ipk_tpu_torch DB path) for the same project and
-    options."""
+    options; ``sparse`` forces both builders onto the sparse path."""
     tmp, states, k, omega, tree_file, fasta_file, ar_dir = project
+    if sparse:
+        for mod in (jax_builder, torch_builder):
+            monkeypatch.setattr(mod, "MAX_DENSE_KEYSPACE", 1)
     if key_batches is not None:
         for mod in (jax_builder, torch_builder):
             monkeypatch.setattr(mod, "pick_key_batches",
@@ -128,6 +138,80 @@ def test_port_matches_jax_build_amino(aa_project, monkeypatch, name, opts):
     assert serialize.load(torch_out).size() > 0
 
 
+@pytest.mark.parametrize("name,opts", [
+    ("sparse_mif0", {}),
+    ("sparse_random", {"filter": "random"}),
+    ("sparse_merge", {"merge_branches": True}),
+])
+def test_port_matches_jax_build_sparse(dna_project, monkeypatch, name, opts):
+    jax_out, torch_out = build_pair(dna_project, name, monkeypatch,
+                                    sparse=True, **opts)
+    assert payload(torch_out) == payload(jax_out)
+
+
+def test_port_matches_jax_build_sparse_amino(aa_project, monkeypatch):
+    from ipk_tpu import serialize
+    jax_out, torch_out = build_pair(aa_project, "aa_sparse", monkeypatch,
+                                    sparse=True)
+    assert payload(torch_out) == payload(jax_out)
+    assert serialize.load(torch_out).size() > 0
+
+
+def test_sparse_equals_dense_build(dna_project, monkeypatch):
+    """The port's forced-sparse build is byte-identical to its dense build
+    (tests/test_builder_modes.py's check of ipk_tpu's two paths)."""
+    tmp, states, k, omega, tree_file, fasta_file, ar_dir = dna_project
+    outs = []
+    for name, limit in (("dense_ref", torch_builder.MAX_DENSE_KEYSPACE),
+                        ("sparse_run", 1)):
+        monkeypatch.setattr(torch_builder, "MAX_DENSE_KEYSPACE", limit)
+        out = str(tmp / f"{name}_port.ipk")
+        build_database(BuildParams(
+            refalign=fasta_file, reftree=tree_file, states=states,
+            working_dir=str(tmp / f"wd_{name}_port"), ar_dir=ar_dir,
+            kmer_size=k, omega=omega, output_filename=out, verbosity=0,
+            device="cpu"))
+        outs.append(open(out, "rb").read())
+    assert outs[0] == outs[1]
+
+
+def test_port_routes_k12_to_sparse(k12_project, monkeypatch):
+    """DNA k=12 (σ^k = 2^24) takes the sparse path by keyspace alone and is
+    payload-equal to ipk_tpu's build."""
+    from ipk_tpu import serialize
+
+    def no_dense(*args, **kwargs):
+        raise AssertionError("the dense path ran at k=12")
+
+    monkeypatch.setattr(torch_builder, "_enumerate_batches", no_dense)
+    jax_out, torch_out = build_pair(k12_project, "k12", monkeypatch)
+    assert payload(torch_out) == payload(jax_out)
+    assert serialize.load(torch_out).size() > 0
+
+
+def test_sparse_capacity_raises(dna_project, monkeypatch):
+    tmp, states, k, omega, tree_file, fasta_file, ar_dir = dna_project
+    monkeypatch.setattr(torch_builder, "MAX_DENSE_KEYSPACE", 1)
+    with pytest.raises(RuntimeError, match="capacity 8 exceeded"):
+        build_database(BuildParams(
+            refalign=fasta_file, reftree=tree_file, states=states,
+            working_dir=str(tmp / "wd_ovf_port"), ar_dir=ar_dir, kmer_size=5,
+            omega=0.01, max_candidates=8,
+            output_filename=str(tmp / "ovf_port.ipk"), verbosity=0,
+            device="cpu"))
+
+
+def test_sparse_rejects_keep_positions(tmp_path):
+    tree_file, fasta_file, ar_dir = make_project(tmp_path, num_leaves=4,
+                                                 width=20, seed=8)
+    with pytest.raises(RuntimeError, match="sparse"):
+        build_database(BuildParams(
+            refalign=fasta_file, reftree=tree_file,
+            working_dir=str(tmp_path / "wd"), ar_dir=ar_dir, kmer_size=12,
+            keep_positions=True, output_filename=str(tmp_path / "x.ipk"),
+            verbosity=0, device="cpu"))
+
+
 def test_cli_build_diff_dump(tmp_path):
     tree_file, fasta_file, ar_dir = make_project(tmp_path, num_leaves=5,
                                                  width=20, seed=3)
@@ -162,8 +246,8 @@ def test_cli_build_diff_dump(tmp_path):
     assert r.returncode != 0
 
 
-@pytest.mark.parametrize("what", ["k12_sparse", "keep_positions", "on_disk",
-                                  "ar_native", "profile"])
+@pytest.mark.parametrize("what", ["keep_positions", "on_disk", "ar_native",
+                                  "profile"])
 def test_unported_modes_raise(tmp_path, what):
     tree_file, fasta_file, ar_dir = make_project(tmp_path, num_leaves=4,
                                                  width=20, seed=8)
@@ -171,9 +255,7 @@ def test_unported_modes_raise(tmp_path, what):
                          working_dir=str(tmp_path / "wd"), ar_dir=ar_dir,
                          kmer_size=5, output_filename=str(tmp_path / "x.ipk"),
                          verbosity=0, device="cpu")
-    if what == "k12_sparse":
-        params.kmer_size = 12
-    elif what == "keep_positions":
+    if what == "keep_positions":
         params.keep_positions = True
     elif what == "on_disk":
         params.on_disk = True
@@ -204,19 +286,21 @@ def test_cuda_requested_without_card_raises():
 
 
 def test_port_runs_without_jax_or_click(tmp_path):
-    """The port's CLI and pipeline import, and build, with neither jax nor
-    click loaded."""
+    """The port's CLI and pipeline import, and build on the dense (k=4) and
+    the sparse (k=12) path, with neither jax nor click loaded."""
     tree_file, fasta_file, ar_dir = make_project(tmp_path, num_leaves=4,
-                                                 width=15, seed=4)
+                                                 width=20, seed=4)
     script = (
         "import sys\n"
         "import ipk_tpu_torch.cli, ipk_tpu_torch.pipeline as pl\n"
-        f"r = pl.build_database(pl.BuildParams(refalign={fasta_file!r}, "
+        "for k, omega in ((4, 1.5), (12, 2.0)):\n"
+        f"    r = pl.build_database(pl.BuildParams(refalign={fasta_file!r}, "
         f"reftree={tree_file!r}, working_dir={str(tmp_path / 'wd')!r}, "
-        f"ar_dir={ar_dir!r}, kmer_size=4, "
+        f"ar_dir={ar_dir!r}, kmer_size=k, omega=omega, "
         f"output_filename={str(tmp_path / 'DB.ipk')!r}, verbosity=0, "
         "device='cpu'))\n"
-        "assert r.db.size() > 0\n"
+        "    assert r.db.size() > 0, k\n"
+        "assert r.stats['final_caps'], 'k=12 did not take the sparse path'\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'click' not in sys.modules, 'click imported'\n"
         "print('ok')\n")

@@ -1,16 +1,19 @@
 """ipk_tpu_torch.core.kernels: the CUDA kernel wrappers.
 
 On the CPU a wrapper takes its plain version and leaves its launch count
-alone; the kernel itself runs only on a card, in the tests marked ``cuda``
-(skipped where ``torch.cuda.is_available()`` is false). Tolerance: none; the
-kernel's arithmetic is exactly rounded f32 add / max / compare.
+alone; the kernels themselves run only on a card, in the tests marked
+``cuda`` (skipped where ``torch.cuda.is_available()`` is false). Tolerance:
+none; the kernels' arithmetic is exactly rounded f32 add / max / compare,
+and the staircase's sorts and slot order are deterministic.
+
+This file imports no jax: it is the one the card's machine runs.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ipk_tpu_torch.core import dense, kernels
+from ipk_tpu_torch.core import dense, kernels, sparse
 
 torch.set_num_threads(2)
 
@@ -84,3 +87,107 @@ def test_kernel_rejects_non_contiguous(cuda_device):
     L, R, eps = halves(4, nl=16, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.combine_max(L[:, :, :8], R, eps)
+
+
+def staircase_inputs(seed, G=2, W=5, CL=20, CR=33, device="cpu",
+                     signed_zeros=False, sign_bit=False):
+    """Seeded survivor lists: ties (rounded scores), pruned -inf entries,
+    optionally ±0.0 scores and codes with bit 31 set."""
+    rng = np.random.default_rng(seed)
+    sL = np.round(rng.uniform(-3, 0, (G, W, CL)), 1).astype(np.float32)
+    sR = np.round(rng.uniform(-3, 0, (G, W, CR)), 1).astype(np.float32)
+    sL[rng.random(sL.shape) < 0.1] = -np.inf
+    sR[rng.random(sR.shape) < 0.1] = -np.inf
+    if signed_zeros:
+        sL[..., ::5] = -0.0
+        sR[..., 1::4] = -0.0
+        sR[..., 2::4] = 0.0
+    cL = rng.permutation(G * W * CL).astype(np.int64).reshape(G, W, CL)
+    cR = rng.permutation(G * W * CR).astype(np.int64).reshape(G, W, CR)
+    if sign_bit:
+        cL = cL * 0x20000001 % (1 << 32)
+        cR = cR * 0x30000001 % (1 << 32)
+    eps = rng.uniform(-3.5, -2.5, (G, W)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (sL, cL, sR, cR, eps))
+
+
+def test_staircase_cpu_tensor_takes_plain_version():
+    args = staircase_inputs(1)
+    before = kernels.staircase_select.launches
+    got = kernels.staircase_select(*args, cap=128, sort_l=False)
+    ref = sparse.staircase_select_ref(*args, cap=128, sort_l=False)
+    assert kernels.staircase_select.launches == before
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["sL_f64", "cL_i32", "cR_f32", "eps_f64",
+                                 "eps_shape", "R_shape", "codes_shape",
+                                 "wide_cap", "wide_list", "empty_cap"])
+def test_staircase_rejects_bad_input(bad):
+    sL, cL, sR, cR, eps = staircase_inputs(2)
+    cap = 128
+    if bad == "sL_f64":
+        sL = sL.double()
+    elif bad == "cL_i32":
+        cL = cL.int()
+    elif bad == "cR_f32":
+        cR = cR.float()
+    elif bad == "eps_f64":
+        eps = eps.double()
+    elif bad == "eps_shape":
+        eps = eps[:, :-1]
+    elif bad == "R_shape":
+        sR, cR = sR[:, :-1], cR[:, :-1]
+    elif bad == "codes_shape":
+        cL = cL[:, :, :-1]
+    elif bad == "wide_cap":
+        cap = kernels.STAIRCASE_MAX_WIDTH + 1
+    elif bad == "wide_list":
+        width = kernels.STAIRCASE_MAX_WIDTH + 1
+        sL = torch.full((1, 1, width), -1.0)
+        cL = torch.zeros((1, 1, width), dtype=torch.int64)
+        sR, cR, eps = sR[:1, :1], cR[:1, :1], eps[:1, :1]
+    else:
+        cap = 0
+    with pytest.raises((TypeError, ValueError),
+                       match="max-candidates" if "wide" in bad else None):
+        kernels.staircase_select(sL, cL, sR, cR, eps, cap=cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort_l", [True, False])
+@pytest.mark.parametrize("G,W,CL,CR,cap,opts", [
+    (1, 5, 20, 33, 128, {}),
+    (2, 9, 130, 200, 256, {}),
+    (1, 3, 300, 40, 384, {}),
+    (2, 4, 64, 64, 200, {"signed_zeros": True, "sign_bit": True}),
+    (1, 4, 40, 40, 100, {}),                 # cap not a multiple of 128
+    (1, 2, 4096, 4096, 4096, {}),
+    (1, 2, 8192, 8192, 8192, {}),
+])
+def test_staircase_kernel_matches_plain_on_card(cuda_device, G, W, CL, CR,
+                                                cap, opts, sort_l):
+    args = staircase_inputs(5 + CL, G, W, CL, CR, device=cuda_device, **opts)
+    before = kernels.staircase_select.launches
+    got = kernels.staircase_select(*args, cap=cap, sort_l=sort_l)
+    torch.cuda.synchronize()
+    assert kernels.staircase_select.launches == before + 1
+    ref = sparse.staircase_select_ref(*args, cap=cap, sort_l=sort_l)
+    for name, a, b in zip(("cl", "cr", "scores", "totals"), got, ref):
+        if name == "scores":
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_staircase_kernel_overflow_totals(cuda_device):
+    """Everything survives: totals past cap, every cap slot filled."""
+    sL, cL, sR, cR, eps = staircase_inputs(3, 1, 4, 40, 40,
+                                           device=cuda_device)
+    sL, sR = sL.clamp(min=-1.0), sR.clamp(min=-1.0)
+    eps = torch.full_like(eps, -100.0)
+    _, _, s, tot = kernels.staircase_select(sL, cL, sR, cR, eps, cap=128)
+    torch.cuda.synchronize()
+    assert bool((tot == 1600).all()) and bool(torch.isfinite(s).all())
