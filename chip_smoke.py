@@ -41,10 +41,44 @@ nvidia-smi. Imports nothing of JAX. Every phase raises on failure:
              caps, re-dispatches, peak device memory, staircase launches;
              and a 64-taxon x 600-site DNA k=10 project built dense and
              forced sparse, byte-identical.
+8. positions — the positions mode of combine_max against
+             combine_max_with_positions_ref, bit-equal A, pos and counts, at
+             ragged random halves, a constant matrix (every pos 0), halves
+             full of -0.0 and +0.0, and each key-batch launch of the next
+             build; the phase-5 project built with --keep-positions in
+             process (keys, branches and scores byte-equal to phase 5's
+             file; wall, transfer bytes, peak memory); the phase-4 amino
+             project with --keep-positions through ``python -m
+             ipk_tpu_torch build`` on the card, payload-equal to the CPU
+             (the CLI refuses --keep-positions for DNA, as ipk_tpu's does);
+             the phase-7 64-taxon project at DNA k=8 with --keep-positions
+             --merge-branches, card payload-equal to CPU.
+9. on-disk — the phase-5 build with --on-disk: the same rows as phase 5's
+             file, sorted by (float32 filter value, key), which is the
+             in-RAM order but among keys whose float32 filter values tie
+             while their float64 values differ (ipk_tpu's on-disk merge
+             orders them so); the 64-taxon project at DNA k=8 with
+             --on-disk, card payload-equal to CPU; the 64-taxon project at
+             DNA k=10 forced sparse with --on-disk, the same rows as its
+             in-RAM sparse build in that order (the merge re-sorts even
+             one part); hashmaps/ removed.
+10. place  — 100,000 reads of 150 sites cut from the scale alignment's
+             leaves with 5% substitutions placed against phase 5's database
+             through ``python -m ipk_tpu_torch place`` (reads/s, peak
+             memory); the first 2,000 against the host f64 scorer: totals
+             within rtol 1e-4 / atol 5e-3, top-1 equal wherever the host's
+             top-2 gap exceeds 5e-3.
+11. native AR — the phase-5 project through --ar native on the card and
+             on the CPU (posteriors within atol 1e-5; the two k=8 databases
+             built from them on the card equal under ``diff-text --eps
+             1e-3``), then --ar native --ar-optimize on the card (the log
+             likelihood must rise; time and steps/s).
 
 Kernel launch counts are reset just before each main path and read just
-after it: combine_max over phases 4-5 (the dense path), staircase_select
-over phases 6-7 (the sparse path). The line before the last is a JSON
+after it: phases 4-5 (the dense path: combine_max), 6-7 (the sparse path:
+staircase_select), 8 (positions: combine_max_with_positions), 9 (on-disk:
+combine_max and staircase_select) and 11 (builds from native-AR
+posteriors: combine_max). The line before the last is a JSON
 object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, when CUDA is unavailable or the
@@ -67,6 +101,13 @@ SCALE = dict(num_leaves=256, width=1500, seed=9, k=8, omega=1.5)
 SPARSE_SCALE = dict(k=12, omega=2.0, cap=4096)
 #: the dense-vs-sparse anchor at a middle size
 MID = dict(num_leaves=64, width=600, seed=13, k=10, omega=2.0)
+#: the phase-8 card-vs-CPU positions build: the MID project at DNA k=8
+POS_MID = dict(k=8, omega=1.5)
+#: the phase-10 reads against the phase-5 database
+READS = dict(n=100_000, length=150, subst=0.05, seed=21, check=2000)
+#: the phase-11 optimizer steps of --ar native --ar-optimize
+AR_OPT_STEPS = 30
+KERNELS = ("combine_max", "combine_max_with_positions", "staircase_select")
 #: phase-3 staircase shapes: (label, G, W, CL, CR, cap, input options)
 STAIRCASE_SHAPES = [
     ("tiny, unaligned", 1, 5, 20, 33, 128, {}),
@@ -466,7 +507,7 @@ def phase_scale(torch, tmp, tree_file, fasta_file, ar_dir, kernel_tuples):
         f"{rate:.4e}; max_memory_allocated {peak} B")
 
 
-def build_sparse(params, out):
+def build_sparse(params, out, **extra):
     """prepare + builder.build forced onto the sparse path (as a caller of
     ``build(..., sparse=True)`` would); returns the BuildResult."""
     from ipk_tpu_torch import builder
@@ -477,7 +518,7 @@ def build_sparse(params, out):
         inp.ar_mapping, inp.label_rows, inp.P, traits=inp.traits,
         kmer_size=params.kmer_size, omega=params.omega, sparse=True,
         sparse_cap=params.max_candidates, output_filename=out,
-        device=params.device, verbose=0)
+        device=params.device, verbose=0, **extra)
 
 
 def phase_sparse_goldens(torch, tmp):
@@ -615,6 +656,518 @@ def phase_sparse_scale(torch, tmp, tree_file, fasta_file, ar_dir):
         f"{t_sparse:.3f} s")
 
 
+def compare_positions(torch, label, L, R, eps, reps=5, plain_reps=1):
+    """combine_max_with_positions vs its plain version on one input: raises
+    unless A (bit patterns), pos and counts are equal."""
+    from ipk_tpu_torch.core import dense, kernels
+    A, pos, counts = kernels.combine_max_with_positions(L, R, eps)
+    A_ref, pos_ref, counts_ref = dense.combine_max_with_positions_ref(
+        L, R, eps)
+    torch.cuda.synchronize()
+    same = [torch.equal(A.view(torch.int32), A_ref.view(torch.int32)),
+            torch.equal(pos, pos_ref), torch.equal(counts, counts_ref)]
+    if not all(same):
+        raise RuntimeError(
+            f"[positions] {label}: kernel differs from "
+            f"combine_max_with_positions_ref (A bits, pos, counts equal: "
+            f"{same})")
+    live = torch.isfinite(A_ref)
+    err = float((A[live] - A_ref[live]).abs().max()) if live.any() else 0.0
+    zeros = A_ref == 0
+    n_neg_zero = int((zeros & torch.signbit(A_ref)).sum())
+    ms = time_ms(torch, lambda: kernels.combine_max_with_positions(L, R, eps),
+                 reps)
+    plain_ms = time_ms(torch, lambda: dense.combine_max_with_positions_ref(
+        L, R, eps), plain_reps)
+    G, W, nl = L.shape
+    log(f"[positions] {label}: G={G} W={W} nl={nl} nr={R.shape[2]} "
+        f"bit-equal (A, pos, counts; {int(live.sum())} live cells, "
+        f"{int(zeros.sum())} zero maxima of which {n_neg_zero} -0.0, "
+        f"max pos {int(pos.max()) if pos.numel() else 0}, "
+        f"{int(counts.sum())} tuples); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                tuples=int(counts.sum()), pos=pos, zeros=int(zeros.sum()),
+                neg_zeros=n_neg_zero)
+
+
+def phase_positions_kernel(torch, tmp, tree_file, fasta_file, ar_dir):
+    """Phase 8, first part: the kernel's positions mode against its plain
+    version (these launches are not the main path's)."""
+    import numpy as np
+    from ipk_tpu_torch.builder import (choose_key_batches, stage1_inputs,
+                                       stage1_state)
+    from ipk_tpu_torch.core.dense import masked_halves
+    from ipk_tpu_torch.pipeline import BuildParams, prepare
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    errs = []
+    G, W, nl, nr = 3, 70, 33, 65
+    L = rng.normal(size=(G, W, nl)).astype(np.float32)
+    L[rng.random(L.shape) < 0.2] = -np.inf
+    R = rng.normal(size=(G, W, nr)).astype(np.float32)
+    errs.append(compare_positions(
+        torch, "ragged random", torch.from_numpy(L).to(dev),
+        torch.from_numpy(R).to(dev),
+        torch.tensor(np.float32(0.5), device=dev))["max_abs_err"])
+    res = compare_positions(
+        torch, "constant matrix (every window ties)",
+        torch.full((2, 37, 40), -0.75, device=dev),
+        torch.full((2, 37, 70), -0.5, device=dev),
+        torch.tensor(np.float32(-2.0), device=dev))
+    if bool((res["pos"] != 0).any()):
+        raise RuntimeError("[positions] constant matrix: a position is not "
+                           "the earliest window")
+    errs.append(res["max_abs_err"])
+    L = -np.abs(np.round(rng.normal(size=(2, 100, 40)), 0)).astype(np.float32)
+    R = -np.abs(np.round(rng.normal(size=(2, 100, 70)), 0)).astype(np.float32)
+    L[rng.random(L.shape) < 0.4] = -0.0
+    R[rng.random(R.shape) < 0.3] = -0.0
+    R[rng.random(R.shape) < 0.2] = 0.0
+    res = compare_positions(
+        torch, "signed zeros", torch.from_numpy(L).to(dev),
+        torch.from_numpy(R).to(dev),
+        torch.tensor(np.float32(-1.5), device=dev))
+    if not 0 < res["neg_zeros"] < res["zeros"]:
+        raise RuntimeError("[positions] signed zeros: the input reached no "
+                           "zero maximum of each sign")
+    errs.append(res["max_abs_err"])
+    # the scale project's halves, cut as a --keep-positions build cuts them
+    inp = prepare(BuildParams(
+        refalign=fasta_file, reftree=tree_file, ar_dir=ar_dir,
+        working_dir=os.path.join(tmp, "wd_kernel_pos"), kmer_size=SCALE["k"],
+        omega=SCALE["omega"], verbosity=0, device="cuda"))
+    s1 = stage1_inputs(inp.original_tree, inp.extended_tree,
+                       inp.ghost_mapping, inp.ar_mapping, inp.label_rows,
+                       inp.P, sigma=inp.traits.alphabet_size,
+                       kmer_size=SCALE["k"], omega=SCALE["omega"])
+    Pt, pre, eps = stage1_state(s1.P_all, s1.prefix_all, s1.eps, dev)
+    L, R = masked_halves(Pt, pre, eps, k=SCALE["k"],
+                         sigma=inp.traits.alphabet_size)
+    del Pt, pre
+    nl, nr = L.shape[2], R.shape[2]
+    key_batches = choose_key_batches(len(s1.group_ids), nl, nr,
+                                     keep_positions=True)
+    step = nl // key_batches
+    runs = []
+    for b in range(key_batches):
+        Lb = L[:, :, b * step:(b + 1) * step].contiguous()
+        runs.append(compare_positions(
+            torch, f"DNA k=8 scale project, --keep-positions key batch "
+            f"{b + 1}/{key_batches}", Lb, R, eps))
+        del Lb
+    del L, R
+    torch.cuda.empty_cache()
+    res = dict(max_abs_err=max(errs + [r["max_abs_err"] for r in runs]),
+               ms=sum(r["ms"] for r in runs) / key_batches,
+               plain_ms=sum(r["plain_ms"] for r in runs) / key_batches,
+               launches_per_build=key_batches)
+    log(f"[positions] DNA k=8 scale project: {key_batches} launch(es) per "
+        f"--keep-positions build, kernel {res['ms']:.4f} ms per launch; "
+        f"plain {res['plain_ms']:.4f} ms per launch")
+    return res
+
+
+def load_db(path):
+    from ipk_tpu_torch.builder import serialize
+    return serialize.load(path)
+
+
+def phase_positions(torch, tmp, tree_file, fasta_file, ar_dir):
+    """Phase 8, second part: --keep-positions builds on the main path."""
+    import numpy as np
+    from ipk_tpu_torch.pipeline import BuildParams, build_database
+    out = os.path.join(tmp, "scale_pos.ipk")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    result = build_database(BuildParams(
+        refalign=fasta_file, reftree=tree_file, kmer_size=SCALE["k"],
+        omega=SCALE["omega"], ar_dir=ar_dir, keep_positions=True,
+        working_dir=os.path.join(tmp, "wd_pos"), output_filename=out,
+        verbosity=0, device="cuda"))
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    pos_db, plain_db = load_db(out), load_db(os.path.join(tmp, "scale_1.ipk"))
+    W = SCALE["width"] - SCALE["k"] + 1
+    for name in ("keys", "offsets", "branches", "scores"):
+        if (getattr(pos_db, name).tobytes()
+                != getattr(plain_db, name).tobytes()):
+            raise RuntimeError(f"[positions] scale build: {name} differ "
+                               "from phase 5's build")
+    if (pos_db.positions is None or len(pos_db.positions) != len(
+            pos_db.scores) or int(pos_db.positions.max()) >= W):
+        raise RuntimeError("[positions] scale build: positions missing or "
+                           "out of range")
+    timings = {k: (round(v, 6) if isinstance(v, float) else v)
+               for k, v in result.timings.items()}
+    log(f"[positions] {SCALE['num_leaves']} taxa x {SCALE['width']} sites, "
+        f"DNA k={SCALE['k']} --keep-positions: {pos_db.size()} k-mers, "
+        f"{pos_db.num_entries()} entries; keys, offsets, branches and "
+        f"scores byte-equal to phase 5's build; positions 0..."
+        f"{int(pos_db.positions.max())} (mean "
+        f"{float(pos_db.positions.mean()):.3f})")
+    log(f"[positions] timings {json.dumps(timings)}")
+    log(f"[positions] build wall {wall:.3f} s; transfer_bytes "
+        f"{result.timings['transfer_bytes']}; max_memory_allocated {peak} B")
+
+    # amino through the CLI on the card, against the CPU in process
+    aa = os.path.join(tmp, "aa")
+    card = os.path.join(aa, "DB_pos_cuda.ipk")
+    cli_wall = run_cli(
+        ["-r", os.path.join(aa, "reference.fasta"), "-t",
+         os.path.join(aa, "tree.newick"), "-s", "amino", "-m", "LG", "-w",
+         os.path.join(aa, "wd_pos_cuda"), "-k", "4", "--omega", "6.0",
+         "--ar-dir", os.path.join(aa, "ar_out"), "--keep-positions", "-o",
+         card, "-v", "0", "--device", "cuda"], tmp, "[positions] amino")
+    cpu = os.path.join(aa, "DB_pos_cpu.ipk")
+    build_database(BuildParams(
+        refalign=os.path.join(aa, "reference.fasta"),
+        reftree=os.path.join(aa, "tree.newick"), states="amino",
+        working_dir=os.path.join(aa, "wd_pos_cpu"),
+        ar_dir=os.path.join(aa, "ar_out"), kmer_size=4, omega=6.0,
+        keep_positions=True, output_filename=cpu, verbosity=0, device="cpu"))
+    aa_db = load_db(card)
+    if (payload(card) != payload(cpu) or aa_db.size() == 0
+            or aa_db.positions is None):
+        raise RuntimeError("[positions] amino k=4 --keep-positions: card "
+                           "(CLI) and CPU builds differ, or are empty or "
+                           "without positions")
+    log(f"[positions] amino k=4 --keep-positions project: card (CLI, "
+        f"{cli_wall:.3f} s) payload-equal to CPU ({aa_db.size()} k-mers, "
+        f"{aa_db.num_entries()} entries)")
+
+    # the 64-taxon project at DNA k=8, positions and merged branches
+    mid = os.path.join(tmp, "mid")
+    outs, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = os.path.join(mid, f"pos_merge_{dev}.ipk")
+        t0 = time.monotonic()
+        build_database(BuildParams(
+            refalign=os.path.join(mid, "reference.fasta"),
+            reftree=os.path.join(mid, "tree.newick"),
+            ar_dir=os.path.join(mid, "ar_out"), kmer_size=POS_MID["k"],
+            omega=POS_MID["omega"], keep_positions=True, merge_branches=True,
+            working_dir=os.path.join(mid, f"wd_pos_{dev}"),
+            output_filename=outs[dev], verbosity=0, device=dev))
+        walls[dev] = time.monotonic() - t0
+    mid_db = load_db(outs["cuda"])
+    if (payload(outs["cuda"]) != payload(outs["cpu"]) or mid_db.size() == 0
+            or mid_db.positions is None
+            or not (np.diff(mid_db.offsets) == 1).all()):
+        raise RuntimeError("[positions] DNA k=8 --keep-positions "
+                           "--merge-branches: card and CPU builds differ, or "
+                           "are empty, without positions or not merged")
+    log(f"[positions] {MID['num_leaves']} taxa x {MID['width']} sites, DNA "
+        f"k={POS_MID['k']} --keep-positions --merge-branches: card "
+        f"payload-equal to CPU ({mid_db.size()} k-mers, one entry each); "
+        f"wall card {walls['cuda']:.3f} s, CPU {walls['cpu']:.3f} s")
+
+
+def by_key(db):
+    """The database's rows in key order: (keys, filter values, entry counts,
+    branches, scores), every entry run kept in its stored order."""
+    import numpy as np
+    order = np.argsort(db.keys, kind="stable")
+    counts = np.diff(db.offsets)[order]
+    ends = np.cumsum(counts)
+    run = np.repeat(np.arange(len(order)), counts)
+    idx = (db.offsets[:-1][order][run]
+           + np.arange(int(ends[-1]) if len(ends) else 0) - (ends - counts)[run])
+    return (db.keys[order], db.filter_values[order], counts, db.branches[idx],
+            db.scores[idx])
+
+
+def same_rows(disk_path, ram_path, label):
+    """Raise unless the on-disk file holds the in-RAM file's rows, sorted by
+    (float32 filter value, key); return how many rows sit elsewhere than in
+    the in-RAM file, and whether the payloads are equal."""
+    import numpy as np
+    disk, ram = load_db(disk_path), load_db(ram_path)
+    same = [a.tobytes() == b.tobytes()
+            for a, b in zip(by_key(disk), by_key(ram))]
+    if not all(same) or disk.size() == 0:
+        raise RuntimeError(f"[on-disk] {label}: the rows differ from the "
+                           f"in-RAM build, or are none (keys, fv, counts, "
+                           f"branches, scores equal: {same})")
+    order = np.lexsort((disk.keys, disk.filter_values))
+    if not np.array_equal(order, np.arange(len(order))):
+        raise RuntimeError(f"[on-disk] {label}: not sorted by (float32 "
+                           "filter value, key)")
+    return (int((disk.keys != ram.keys).sum()),
+            payload(disk_path) == payload(ram_path))
+
+
+def phase_on_disk(torch, tmp, tree_file, fasta_file, ar_dir):
+    """The on-disk merge orders rows by the filter values it reads back as
+    float32, then by key (ipk_tpu's ``_merge_on_disk``); the in-RAM sort
+    orders by the float64 values. So the two files hold the same rows, in
+    the same order except among keys whose float32 filter values tie while
+    their float64 values differ: ipk_tpu's own on-disk build differs from
+    its in-RAM build there. The checks follow: the same rows in the (f32 fv,
+    key) order, and card == CPU payloads of a multi-batch on-disk build."""
+    from ipk_tpu_torch.pipeline import BuildParams, build_database
+    wd = os.path.join(tmp, "wd_disk")
+    out = os.path.join(tmp, "scale_disk.ipk")
+    t0 = time.monotonic()
+    result = build_database(BuildParams(
+        refalign=fasta_file, reftree=tree_file, kmer_size=SCALE["k"],
+        omega=SCALE["omega"], ar_dir=ar_dir, on_disk=True, working_dir=wd,
+        output_filename=out, verbosity=0, device="cuda"))
+    wall = time.monotonic() - t0
+    moved, equal = same_rows(out, os.path.join(tmp, "scale_1.ipk"),
+                             "the scale build")
+    if os.path.exists(os.path.join(wd, "hashmaps")) or result.db.size():
+        raise RuntimeError("[on-disk] hashmaps/ left behind, or the result "
+                           "holds arrays")
+    timings = {k: (round(v, 6) if isinstance(v, float) else v)
+               for k, v in result.timings.items()}
+    log(f"[on-disk] {SCALE['num_leaves']} taxa x {SCALE['width']} sites, "
+        f"DNA k={SCALE['k']} --on-disk: the same {load_db(out).size()} rows "
+        f"as phase 5's in-RAM file (keys, fv, entries), sorted by (f32 fv, "
+        f"key); {moved} rows sit elsewhere than in the in-RAM file "
+        f"({equal} payload-equal); hashmaps/ removed; wall {wall:.3f} s; "
+        f"timings {json.dumps(timings)}")
+    mid = os.path.join(tmp, "mid")
+    outs, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = os.path.join(mid, f"disk_k8_{dev}.ipk")
+        wd = os.path.join(mid, f"wd_disk_k8_{dev}")
+        t0 = time.monotonic()
+        build_database(BuildParams(
+            refalign=os.path.join(mid, "reference.fasta"),
+            reftree=os.path.join(mid, "tree.newick"),
+            ar_dir=os.path.join(mid, "ar_out"), kmer_size=POS_MID["k"],
+            omega=POS_MID["omega"], on_disk=True, working_dir=wd,
+            output_filename=outs[dev], verbosity=0, device=dev))
+        walls[dev] = time.monotonic() - t0
+        if os.path.exists(os.path.join(wd, "hashmaps")):
+            raise RuntimeError("[on-disk] k=8: hashmaps/ left behind")
+    if payload(outs["cuda"]) != payload(outs["cpu"]):
+        raise RuntimeError("[on-disk] DNA k=8 --on-disk: card and CPU builds "
+                           "differ")
+    log(f"[on-disk] {MID['num_leaves']} taxa x {MID['width']} sites, DNA "
+        f"k={POS_MID['k']} --on-disk (key batches merged): card "
+        f"payload-equal to CPU ({load_db(outs['cuda']).size()} k-mers); wall "
+        f"card {walls['cuda']:.3f} s, CPU {walls['cpu']:.3f} s")
+    wd = os.path.join(mid, "wd_sparse_disk")
+    out = os.path.join(mid, "sparse_disk.ipk")
+    t0 = time.monotonic()
+    build_sparse(BuildParams(
+        refalign=os.path.join(mid, "reference.fasta"),
+        reftree=os.path.join(mid, "tree.newick"),
+        ar_dir=os.path.join(mid, "ar_out"), kmer_size=MID["k"],
+        omega=MID["omega"], working_dir=wd, verbosity=0, device="cuda"), out,
+        on_disk=True, working_dir=wd)
+    wall = time.monotonic() - t0
+    moved, equal = same_rows(out, os.path.join(mid, "sparse.ipk"),
+                             f"the forced-sparse DNA k={MID['k']} build")
+    if os.path.exists(os.path.join(wd, "hashmaps")):
+        raise RuntimeError("[on-disk] sparse: hashmaps/ left behind")
+    log(f"[on-disk] {MID['num_leaves']} taxa x {MID['width']} sites, DNA "
+        f"k={MID['k']} forced sparse --on-disk: the same "
+        f"{load_db(out).size()} rows as its in-RAM sparse build, sorted by "
+        f"(f32 fv, key); {moved} rows sit elsewhere ({equal} payload-equal); "
+        f"hashmaps/ removed; wall {wall:.3f} s")
+
+
+def read_alignment(path):
+    """FASTA → [rows, width] uint8 (the smoke's own parser)."""
+    import numpy as np
+    seqs, cur = [], []
+    for line in open(path):
+        line = line.strip()
+        if line.startswith(">"):
+            if cur:
+                seqs.append("".join(cur))
+            cur = []
+        elif line:
+            cur.append(line)
+    if cur:
+        seqs.append("".join(cur))
+    return np.frombuffer("".join(seqs).encode("ascii"),
+                         np.uint8).reshape(len(seqs), -1)
+
+
+def make_reads(fasta_file, path):
+    """READS["n"] reads of READS["length"] sites cut from random leaves of
+    the alignment at random offsets, each site substituted by another base
+    with probability READS["subst"], from READS["seed"]."""
+    import numpy as np
+    rng = np.random.default_rng(READS["seed"])
+    aln = read_alignment(fasta_file)
+    n, length = READS["n"], READS["length"]
+    rows = rng.integers(0, aln.shape[0], n)
+    starts = rng.integers(0, aln.shape[1] - length + 1, n)
+    reads = aln[rows[:, None], starts[:, None] + np.arange(length)]
+    lut = np.full(256, 0, np.int64)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    codes = lut[reads]
+    subst = rng.random(reads.shape) < READS["subst"]
+    codes = np.where(subst, (codes + rng.integers(1, 4, reads.shape)) % 4,
+                     codes)
+    reads = np.frombuffer(b"ACGT", np.uint8)[codes]
+    with open(path, "wb") as f:
+        f.write(b"".join(b">r%d\n%s\n" % (i, reads[i].tobytes())
+                         for i in range(n)))
+    return [r.tobytes().decode() for r in reads], float(subst.mean())
+
+
+def phase_placement(torch, tmp, fasta_file):
+    import re
+    import numpy as np
+    from ipk_tpu_torch.placement import TorchPlacementIndex
+    db_path = os.path.join(tmp, "scale_1.ipk")
+    reads_path = os.path.join(tmp, "reads.fasta")
+    t0 = time.monotonic()
+    reads, rate = make_reads(fasta_file, reads_path)
+    log(f"[place] {len(reads)} reads of {READS['length']} sites, "
+        f"{rate:.4f} of sites substituted, written in "
+        f"{time.monotonic() - t0:.3f} s")
+    jplace = os.path.join(tmp, "reads.jplace")
+    t0 = time.monotonic()
+    cli = subprocess.run(
+        [sys.executable, "-m", "ipk_tpu_torch", "place", db_path, reads_path,
+         "-o", jplace, "--top", "7", "--device", "cuda"],
+        cwd=tmp, capture_output=True, text=True, timeout=900,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p])})
+    cli_wall = time.monotonic() - t0
+    if cli.returncode != 0:
+        raise RuntimeError(f"[place] python -m ipk_tpu_torch place failed "
+                           f"({cli.returncode}):\n{cli.stderr[-4000:]}")
+    summary = cli.stdout.strip().splitlines()[-1]
+    m = re.search(r"Placed (\d+) queries .* in ([0-9.]+) s \(([0-9.]+) "
+                  r"queries/s on (\S+), max_memory_allocated (\d+) B\)",
+                  summary)
+    if not m or int(m.group(1)) != len(reads):
+        raise RuntimeError(f"[place] unexpected CLI summary: {summary!r}")
+    log(f"[place] CLI: {summary} (process wall {cli_wall:.3f} s)")
+    placements = json.load(open(jplace))["placements"]
+
+    # the first reads against the host f64 scorer
+    n = READS["check"]
+    db = load_db(db_path)
+    t0 = time.monotonic()
+    index = TorchPlacementIndex(db, device="cuda")
+    ids, totals, _ = index.place_batch(reads[:n])
+    dev_s = time.monotonic() - t0
+    worst, checked, gaps = 0.0, 0, 0
+    for q in range(n):
+        ids_h, tot_h, _ = index.host.score_query(reads[q])
+        if not np.array_equal(ids_h, ids):
+            raise RuntimeError("[place] branch columns differ")
+        excess = np.abs(totals[q] - tot_h) - (5e-3 + 1e-4 * np.abs(tot_h))
+        worst = max(worst, float(np.abs(totals[q] - tot_h).max()))
+        if (excess > 0).any():
+            raise RuntimeError(f"[place] read {q}: device totals beyond "
+                               f"rtol 1e-4 / atol 5e-3 of the host scorer "
+                               f"(max |d| {worst})")
+        top2 = np.sort(tot_h)[-2:]
+        if top2[1] - top2[0] > 5e-3:
+            gaps += 1
+            pl = placements[q]
+            if pl["n"] != [f"r{q}"] or pl["p"][0][0] != int(
+                    ids_h[np.argmax(tot_h)]):
+                raise RuntimeError(f"[place] read {q}: the CLI's top-1 "
+                                   "differs from the host scorer's")
+        checked += 1
+    log(f"[place] first {checked} reads: device totals within rtol 1e-4 / "
+        f"atol 5e-3 of the host f64 scorer (max |d| {worst:.6g}); top-1 "
+        f"equal on all {gaps} reads whose host top-2 gap exceeds 5e-3; "
+        f"in-process device scoring {dev_s:.3f} s")
+
+
+def phase_native_ar(torch, tmp, tree_file, fasta_file):
+    import numpy as np
+    from ipk_tpu_torch import builder, cli
+    from ipk_tpu_torch.ar import optimize as opt_mod
+    from ipk_tpu_torch.pipeline import BuildParams, build_database, prepare
+    base = dict(refalign=fasta_file, reftree=tree_file, ar_binary="native",
+                kmer_size=SCALE["k"], omega=SCALE["omega"], verbosity=0)
+    inputs, walls, dbs = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.monotonic()
+        inputs[dev] = prepare(BuildParams(
+            working_dir=os.path.join(tmp, f"wd_native_{dev}"), device=dev,
+            **base))
+        walls[dev] = time.monotonic() - t0
+    rows_c, P_c = inputs["cuda"].label_rows, inputs["cuda"].P
+    rows_p, P_p = inputs["cpu"].label_rows, inputs["cpu"].P
+    if set(rows_c) != set(rows_p):
+        raise RuntimeError("[native AR] card and CPU posteriors cover "
+                           "different nodes")
+    order = [rows_p[label] for label in rows_c]
+    diff = float(np.abs(np.power(10.0, P_c.astype(np.float64))
+                        - np.power(10.0, P_p[order].astype(np.float64))).max())
+    if not diff <= 1e-5:
+        raise RuntimeError(f"[native AR] card and CPU posteriors differ by "
+                           f"{diff} > 1e-5")
+    log(f"[native AR] {SCALE['num_leaves']} taxa x {SCALE['width']} sites: "
+        f"posteriors of {len(rows_c)} nodes, card vs CPU max |dp| {diff:.3g} "
+        f"(atol 1e-5); prepare wall (alignment, tree, AR, artifacts, read) "
+        f"card {walls['cuda']:.3f} s, CPU {walls['cpu']:.3f} s")
+    for dev, inp in inputs.items():
+        dbs[dev] = os.path.join(tmp, f"native_{dev}.ipk")
+        builder.build(inp.original_tree, inp.extended_tree, inp.ghost_mapping,
+                      inp.ar_mapping, inp.label_rows, inp.P,
+                      traits=inp.traits, kmer_size=SCALE["k"],
+                      omega=SCALE["omega"], output_filename=dbs[dev],
+                      device="cuda", verbose=0)
+    if cli.main(["diff-text", dbs["cuda"], dbs["cpu"], "--eps", "1e-3"]) != 0:
+        raise RuntimeError("[native AR] the databases built from the card's "
+                           "and the CPU's posteriors differ under diff-text")
+    log(f"[native AR] DNA k={SCALE['k']} databases built on the card from "
+        f"both posteriors: equal under diff-text --eps 1e-3 "
+        f"({load_db(dbs['cuda']).size()} k-mers)")
+
+    fits = []
+    fit = opt_mod.optimize_parameters
+
+    def timed_fit(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        result = fit(*args, **kwargs)
+        torch.cuda.synchronize()
+        fits.append((time.monotonic() - t0, result))
+        return result
+
+    opt_mod.optimize_parameters = timed_fit
+    try:
+        t0 = time.monotonic()
+        result = build_database(BuildParams(
+            working_dir=os.path.join(tmp, "wd_native_opt"), device="cuda",
+            ar_optimize=True, ar_opt_steps=AR_OPT_STEPS,
+            output_filename=os.path.join(tmp, "native_opt.ipk"), **base))
+        wall = time.monotonic() - t0
+    finally:
+        opt_mod.optimize_parameters = fit
+    if len(fits) != 1:
+        raise RuntimeError("[native AR] --ar-optimize did not run the fit")
+    secs, opt = fits[0]
+    if not (opt.loglik_final > opt.loglik_initial and opt.steps
+            == AR_OPT_STEPS and result.db.size() > 0):
+        raise RuntimeError(f"[native AR] --ar-optimize: log likelihood "
+                           f"{opt.loglik_initial} -> {opt.loglik_final} did "
+                           "not rise, or the build is empty")
+    log(f"[native AR] --ar native --ar-optimize on the card: {opt.steps} "
+        f"Adam steps (f64) in {secs:.3f} s ({opt.steps / secs:.3f} steps/s); "
+        f"logL {opt.loglik_initial:.4f} -> {opt.loglik_final:.4f}; alpha "
+        f"{opt.alpha:.4f}; whole build {wall:.3f} s "
+        f"({result.db.size()} k-mers)")
+
+
+def reset_counts():
+    from ipk_tpu_torch.core import kernels
+    for name in KERNELS:
+        getattr(kernels, name).launches = 0
+
+
+def read_counts():
+    from ipk_tpu_torch.core import kernels
+    return {name: getattr(kernels, name).launches for name in KERNELS}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "ipk_tpu_torch")):
         print("chip_smoke.py: the ipk_tpu_torch package is not beside this "
@@ -624,7 +1177,6 @@ def main() -> int:
     import torch
     smi = phase_device(torch)
     phase_build()
-    from ipk_tpu_torch.core import kernels
     from fixtures import make_project
     tmp = tempfile.mkdtemp(prefix="ipk_tpu_torch_smoke_")
     try:
@@ -638,36 +1190,72 @@ def main() -> int:
         kres = phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir)
         sres = phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir,
                                       tmp)
-        # the dense main path
-        kernels.combine_max.launches = 0
-        kernels.staircase_select.launches = 0
-        phase_goldens(torch, tmp)
-        phase_scale(torch, tmp, tree_file, fasta_file, ar_dir,
-                    kres["tuples"])
-        dense_launches = kernels.combine_max.launches
-        # the sparse main path
-        kernels.combine_max.launches = 0
-        kernels.staircase_select.launches = 0
-        phase_sparse_goldens(torch, tmp)
-        phase_sparse_scale(torch, tmp, tree_file, fasta_file, ar_dir)
-        sparse_launches = kernels.staircase_select.launches
-        if dense_launches <= 0 or sparse_launches <= 0:
-            raise RuntimeError(
-                f"a kernel was not launched on its main path (combine_max "
-                f"{dense_launches}, staircase_select {sparse_launches})")
-        log(f"[done] smoke wall {time.monotonic() - t0:.1f} s")
+        walls = {}
+        counts = {}
+
+        def path(name, *phases):
+            """Drive one path with the launch counts reset just before it
+            and read just after it."""
+            t_path = time.monotonic()
+            reset_counts()
+            for fn, args in phases:
+                fn(*args)
+            counts[name] = read_counts()
+            walls[name] = time.monotonic() - t_path
+            log(f"[path] {name}: {walls[name]:.1f} s, kernel launches "
+                f"{json.dumps(counts[name])}")
+
+        path("dense", (phase_goldens, (torch, tmp)),
+             (phase_scale, (torch, tmp, tree_file, fasta_file, ar_dir,
+                            kres["tuples"])))
+        path("sparse", (phase_sparse_goldens, (torch, tmp)),
+             (phase_sparse_scale, (torch, tmp, tree_file, fasta_file,
+                                   ar_dir)))
+        t_pk = time.monotonic()
+        pres = phase_positions_kernel(torch, tmp, tree_file, fasta_file,
+                                      ar_dir)
+        walls["positions kernel check"] = time.monotonic() - t_pk
+        path("positions", (phase_positions, (torch, tmp, tree_file,
+                                             fasta_file, ar_dir)))
+        path("on-disk", (phase_on_disk, (torch, tmp, tree_file, fasta_file,
+                                         ar_dir)))
+        path("place", (phase_placement, (torch, tmp, fasta_file)))
+        path("native AR", (phase_native_ar, (torch, tmp, tree_file,
+                                             fasta_file)))
+        required = [("dense", "combine_max"), ("sparse", "staircase_select"),
+                    ("positions", "combine_max_with_positions"),
+                    ("on-disk", "combine_max"),
+                    ("on-disk", "staircase_select"),
+                    ("native AR", "combine_max")]
+        missing = [f"{k} on the {p} path" for p, k in required
+                   if counts[p][k] <= 0]
+        if missing:
+            raise RuntimeError(f"kernels not launched on their paths: "
+                               f"{missing}; counts {counts}")
+        log(f"[done] smoke wall {time.monotonic() - t0:.1f} s; per path "
+            f"{json.dumps({k: round(v, 1) for k, v in walls.items()})}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"kernels": [{
         "name": "combine_max", "route": "cuda",
         "source": "ipk_tpu_torch/core/csrc/combine_max.cu",
         "replaces": "ipk_tpu/core/pallas_kernels.py:163",
-        "launches": dense_launches, "max_abs_err": kres["max_abs_err"],
+        "launches": sum(counts[p]["combine_max"]
+                        for p in ("dense", "on-disk", "native AR")),
+        "max_abs_err": kres["max_abs_err"],
         "ms": kres["ms"], "plain_ms": kres["plain_ms"]}, {
+        "name": "combine_max_with_positions", "route": "cuda",
+        "source": "ipk_tpu_torch/core/csrc/combine_max.cu",
+        "replaces": "ipk_tpu/core/dense.py:310",
+        "launches": counts["positions"]["combine_max_with_positions"],
+        "max_abs_err": pres["max_abs_err"],
+        "ms": pres["ms"], "plain_ms": pres["plain_ms"]}, {
         "name": "staircase_select", "route": "cuda",
         "source": "ipk_tpu_torch/core/csrc/staircase_select.cu",
         "replaces": "ipk_tpu/core/pallas_kernels.py:404",
-        "launches": sparse_launches, "max_abs_err": sres["max_abs_err"],
+        "launches": sum(counts[p]["staircase_select"]
+                        for p in ("sparse", "on-disk")),
+        "max_abs_err": sres["max_abs_err"],
         "ms": sres["ms"], "plain_ms": sres["plain_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

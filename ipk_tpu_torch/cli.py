@@ -1,5 +1,5 @@
 """Command-line interface of the port: ``python -m ipk_tpu_torch
-build|diff|dump``.
+build|diff|dump|place|diff-text``.
 
 The option names and defaults are those of ``ipk_tpu/cli.py`` (which mirror
 the reference wrapper, ``ipk.py:70-202``), plus ``--device``. It is written
@@ -8,6 +8,9 @@ on argparse rather than click so that it runs where click is not installed.
 * ``build`` — compute a phylo-k-mer database on a torch device.
 * ``diff``  — compare two databases; exits 1 on any difference.
 * ``dump``  — plain-text dump in the reference's ipkdump format.
+* ``place`` — place query sequences against a database; writes jplace v3.
+* ``diff-text`` — tolerant comparison in linear space, ignoring k-mers at
+  the threshold; exits 1 on any other difference.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import argparse
 import json
 import os
 import sys
+import time
 from typing import List, Optional
 
 from ipk_tpu.ar.bridge import AMINO_MODELS, NUCL_MODELS
@@ -68,7 +72,8 @@ def _build_parser() -> argparse.ArgumentParser:
     b = sub.add_parser("build", help="Compute a database of phylo-k-mers.")
     b.add_argument("-b", "--ar", default="",
                    help="Path to the ancestral reconstruction binary "
-                        "(RAxML-ng).")
+                        "(RAxML-ng), or 'native' for the built-in AR on the "
+                        "build's device.")
     b.add_argument("-r", "--refalign", type=_existing_path, required=True,
                    help="Reference multiple sequence alignment in FASTA.")
     b.add_argument("-t", "--reftree", type=_existing_path, required=True,
@@ -109,7 +114,8 @@ def _build_parser() -> argparse.ArgumentParser:
     b.add_argument("--ar-only", action="store_true")
     b.add_argument("--ar-config", type=_existing_path)
     b.add_argument("--ar-optimize", action="store_true",
-                   help="With --ar native (not ported yet).")
+                   help="With --ar native: fit branch lengths, GTR rates "
+                        "and the gamma alpha by maximum likelihood first.")
     b.add_argument("--ar-opt-steps", type=int, default=200)
     b.add_argument("--keep-positions", action="store_true")
     b.add_argument("--uncompressed", action="store_true")
@@ -142,6 +148,26 @@ def _build_parser() -> argparse.ArgumentParser:
     u = sub.add_parser("dump", help="Plain-text dump (reference ipkdump "
                                     "format).")
     u.add_argument("database", type=_existing_path)
+
+    pl = sub.add_parser("place", help="Place query sequences (FASTA) "
+                                      "against a database; writes jplace v3.")
+    pl.add_argument("database", type=_existing_path)
+    pl.add_argument("queries", type=_existing_path)
+    pl.add_argument("-o", "--output", required=True,
+                    help="Output .jplace file")
+    pl.add_argument("--top", type=int, default=7,
+                    help="Number of best branches reported per query.")
+    pl.add_argument("--device", default="cuda",
+                    help="torch device that scores batches of 64 queries "
+                         "or more: cuda (default), cuda:N or cpu.")
+
+    t = sub.add_parser("diff-text", help="Tolerant comparison ignoring "
+                                         "threshold-boundary k-mers; exit 1 "
+                                         "on differences.")
+    t.add_argument("db1", type=_existing_path)
+    t.add_argument("db2", type=_existing_path)
+    t.add_argument("--eps", type=float, default=1e-3,
+                   help="Linear-space score tolerance.")
     return parser
 
 
@@ -183,6 +209,31 @@ def _build(args, parser: argparse.ArgumentParser) -> int:
     return 0
 
 
+def _place(args) -> int:
+    import torch
+    from ipk_tpu import serialize
+    from ipk_tpu.alignment import read_fasta
+    from .device import resolve
+    from .placement import place_queries, write_jplace
+    dev = resolve(args.device)
+    db = serialize.load(args.database)
+    queries = list(read_fasta(args.queries))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    placements = place_queries(db, queries, top=args.top, device=dev)
+    seconds = time.monotonic() - t0
+    write_jplace(db, placements, args.output)
+    line = (f"Placed {len(placements)} queries -> {args.output} in "
+            f"{seconds:.3f} s ({len(queries) / max(seconds, 1e-9):.1f} "
+            f"queries/s on {dev}")
+    if dev.type == "cuda":
+        line += (f", max_memory_allocated "
+                 f"{torch.cuda.max_memory_allocated(dev)} B")
+    print(line + ")")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = _build_parser()
     args = parser.parse_args(argv)
@@ -195,6 +246,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         ok = diff_databases(args.db1, args.db2, verbose=args.verbose,
                             eps=args.eps)
         return 0 if ok else 1
+    if args.command == "diff-text":
+        from ipk_tpu.tools import diff_plain_text
+        return 0 if diff_plain_text(args.db1, args.db2, eps=args.eps) else 1
+    if args.command == "place":
+        return _place(args)
     from ipk_tpu.tools import dump_database
     dump_database(args.database, sys.stdout)
     return 0

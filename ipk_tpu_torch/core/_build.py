@@ -119,6 +119,11 @@ def load() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_int, vp]
         lib.ipk_combine_max.restype = ctypes.c_int
+        lib.ipk_combine_max_positions.argtypes = [
+            vp, vp, ctypes.c_float, vp, vp, vp, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, vp]
+        lib.ipk_combine_max_positions.restype = ctypes.c_int
         ll = ctypes.c_longlong
         lib.ipk_staircase_select.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, ctypes.c_int,

@@ -30,6 +30,20 @@
 // deterministic, and 64-bit, so it does not wrap where W * sigma^k > 2^31.
 // eps arrives as a C float and all arithmetic is exactly rounded f32
 // (no fast-math), so A is bit-equal to the plain version.
+//
+// Positions mode (kPositions, entry ipk_combine_max_positions) replaces the
+// jnp function ipk_tpu/core/dense.py:combine_max_with_positions (the aa-pos
+// build's accumulator; plain version combine_max_with_positions_ref). Each
+// accumulator keeps an int window beside it and is replaced only when
+// t > acc: windows run in ascending order in every thread, so the earliest
+// window of the maximum wins. After the loop a cell with acc <= eps is
+// written (-inf, 0). One seam stays: ipk_tpu takes the maximum per block of
+// 32 windows (the last block clamped to end at W) with XLA's max, which
+// keeps the bits of the last window tied at the maximum. That differs from
+// the first window's bits only where the maximum is a zero reached as both
+// -0.0 and +0.0, so a live cell whose maximum is zero rescans the rest of
+// its block from global memory and takes the last zero's bits. No real
+// build reaches it; the check costs nothing on the hot loop.
 
 #include <cuda_runtime.h>
 
@@ -47,9 +61,12 @@ constexpr int WARPS = THREADS / 32;
 
 static_assert(TI / RI == 16 && TJ / RJ == 16, "16 x 16 thread layout");
 
+constexpr int POS_BLOCK = 32;  // ipk_tpu's window block (builder block_w)
+
+template <bool kPositions>
 __global__ void __launch_bounds__(THREADS)
 combine_max_kernel(const float* __restrict__ L, const float* __restrict__ R,
-                   float eps, float* __restrict__ A,
+                   float eps, float* __restrict__ A, int* __restrict__ pos,
                    unsigned long long* __restrict__ counts,
                    int W, int nl, int nr, int tiles_i, int tiles_j) {
   __shared__ __align__(16) float Ls[TW][TI];
@@ -72,10 +89,14 @@ combine_max_kernel(const float* __restrict__ L, const float* __restrict__ R,
   const float* Rg = R + g * static_cast<long long>(W) * nr;
 
   float acc[RI][RJ];
+  int win[RI][RJ];
 #pragma unroll
   for (int r = 0; r < RI; ++r)
 #pragma unroll
-    for (int c = 0; c < RJ; ++c) acc[r][c] = NEG_INF;
+    for (int c = 0; c < RJ; ++c) {
+      acc[r][c] = NEG_INF;
+      win[r][c] = 0;
+    }
   unsigned int cnt = 0;
 
   for (int w0 = 0; w0 < W; w0 += TW) {
@@ -106,7 +127,14 @@ combine_max_kernel(const float* __restrict__ L, const float* __restrict__ R,
 #pragma unroll
         for (int cc = 0; cc < RJ; ++cc) {
           const float t = __fadd_rn(lv[rr], rv[cc]);
-          acc[rr][cc] = fmaxf(acc[rr][cc], t);
+          if constexpr (kPositions) {
+            if (t > acc[rr][cc]) {
+              acc[rr][cc] = t;
+              win[rr][cc] = w0 + w;
+            }
+          } else {
+            acc[rr][cc] = fmaxf(acc[rr][cc], t);
+          }
           cnt += (t > eps) ? 1u : 0u;
         }
     }
@@ -117,11 +145,31 @@ combine_max_kernel(const float* __restrict__ L, const float* __restrict__ R,
   for (int rr = 0; rr < RI; ++rr) {
     const int gi = i0 + ty * RI + rr;
     if (gi >= nl) continue;
-    float* row = A + (g * nl + gi) * static_cast<long long>(nr);
+    const long long cell0 = (g * nl + gi) * static_cast<long long>(nr);
 #pragma unroll
     for (int cc = 0; cc < RJ; ++cc) {
       const int gj = j0 + tx * RJ + cc;
-      if (gj < nr) row[gj] = acc[rr][cc] > eps ? acc[rr][cc] : NEG_INF;
+      if (gj >= nr) continue;
+      const bool live = acc[rr][cc] > eps;
+      float a = live ? acc[rr][cc] : NEG_INF;
+      if constexpr (kPositions) {
+        const int p = live ? win[rr][cc] : 0;
+        if (live && a == 0.0f) {
+          // the zero seam: the last zero of p's block gives the bits
+          const int bw = min(POS_BLOCK, W);
+          const int nb = (W + bw - 1) / bw;
+          const int ib = min(p / bw, nb - 1);
+          const int end = min(ib * bw, W - bw) + bw;
+          for (int w = p + 1; w < end; ++w) {
+            const float t =
+                __fadd_rn(Lg[static_cast<long long>(w) * nl + gi],
+                          Rg[static_cast<long long>(w) * nr + gj]);
+            if (t == 0.0f) a = t;
+          }
+        }
+        pos[cell0 + gj] = p;
+      }
+      A[cell0 + gj] = a;
     }
   }
 
@@ -139,17 +187,10 @@ combine_max_kernel(const float* __restrict__ L, const float* __restrict__ R,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the kernel on `stream` of CUDA device `device` and returns
-// cudaGetLastError() (0 on success). Allocates nothing and does not
-// synchronise.
-int ipk_combine_max(const float* L, const float* R, float eps, float* A,
-                    unsigned long long* counts, long long G, long long W,
-                    long long nl, long long nr, int device,
-                    cudaStream_t stream) {
+template <bool kPositions>
+int launch(const float* L, const float* R, float eps, float* A, int* pos,
+           unsigned long long* counts, long long G, long long W, long long nl,
+           long long nr, int device, cudaStream_t stream) {
   if (G < 0 || W < 0 || nl < 0 || nr < 0 || W > INT_MAX || nl > INT_MAX ||
       nr > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -160,12 +201,37 @@ int ipk_combine_max(const float* L, const float* R, float eps, float* A,
   const long long blocks = G * tiles_i * tiles_j;
   if (blocks == 0) return static_cast<int>(cudaSuccess);
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  combine_max_kernel<<<static_cast<unsigned int>(blocks), THREADS, 0,
-                       stream>>>(L, R, eps, A, counts, static_cast<int>(W),
-                                 static_cast<int>(nl), static_cast<int>(nr),
-                                 static_cast<int>(tiles_i),
-                                 static_cast<int>(tiles_j));
+  combine_max_kernel<kPositions>
+      <<<static_cast<unsigned int>(blocks), THREADS, 0, stream>>>(
+          L, R, eps, A, pos, counts, static_cast<int>(W),
+          static_cast<int>(nl), static_cast<int>(nr),
+          static_cast<int>(tiles_i), static_cast<int>(tiles_j));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry launches the kernel on `stream` of CUDA device `device` and
+// returns cudaGetLastError() (0 on success). Allocates nothing and does not
+// synchronise.
+int ipk_combine_max(const float* L, const float* R, float eps, float* A,
+                    unsigned long long* counts, long long G, long long W,
+                    long long nl, long long nr, int device,
+                    cudaStream_t stream) {
+  return launch<false>(L, R, eps, A, nullptr, counts, G, W, nl, nr, device,
+                       stream);
+}
+
+// Positions mode: pos [G, nl, nr] int32 gets the earliest window of each
+// cell's maximum (0 where the cell is dead).
+int ipk_combine_max_positions(const float* L, const float* R, float eps,
+                              float* A, int* pos, unsigned long long* counts,
+                              long long G, long long W, long long nl,
+                              long long nr, int device, cudaStream_t stream) {
+  return launch<true>(L, R, eps, A, pos, counts, G, W, nl, nr, device,
+                      stream);
 }
 
 const char* ipk_cuda_error_string(int code) {

@@ -6,7 +6,8 @@ reference's split tree ``(h//2, h - h//2)`` with per-level pruning
 thresholds; the top level factorises into two masked half tensors
 ``L[G, W, σ^(k//2)]`` and ``R[G, W, σ^(k-k//2)]`` whose outer sum, max-reduced
 over windows, is the per-ghost accumulator (``combine_max_ref`` here, the CUDA
-kernel ``core.kernels.combine_max`` on the GPU).
+kernel ``core.kernels.combine_max`` on the GPU; with the best window of each
+cell, ``combine_max_with_positions_ref`` and its kernel mode).
 
 What must stay exactly as in the reference for bit-equal results:
 
@@ -21,14 +22,16 @@ JAX's ``vmap`` over ghosts is the leading dimension G written out.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["split_tree", "best_score_prefix", "masked_span_scores",
-           "masked_halves", "combine_max_ref", "group_max",
-           "compact_survivors", "bitmask_survivors"]
+           "masked_halves", "combine_max_ref",
+           "combine_max_with_positions_ref", "group_max",
+           "group_max_with_positions", "compact_survivors",
+           "bitmask_survivors"]
 
 NEG_INF = float("-inf")
 
@@ -151,12 +154,92 @@ def combine_max_ref(L: torch.Tensor, R: torch.Tensor, eps: torch.Tensor,
     return A, counts
 
 
+def combine_max_with_positions_ref(L: torch.Tensor, R: torch.Tensor,
+                                   eps: torch.Tensor, *, block_w: int = 32,
+                                   budget_bytes: Optional[int] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Plain version of the positions mode of the ``combine_max`` kernel:
+    :func:`combine_max_ref` plus the window of each cell's best score (the
+    aa-pos variant, ``ipk_tpu/core/dense.py:combine_max_with_positions``).
+
+    Windows run in ascending order and only a strictly greater score
+    replaces, so ``pos`` is the earliest window of the maximum
+    (``branch_group.cpp:73-86``); counts take every window once, as int64.
+    Dead cells are (-inf, 0). One seam follows ``ipk_tpu``'s blocks of
+    ``block_w`` windows (the last clamped to end at W): its block max comes
+    out of XLA on the CPU with the bits of the LAST window of the block
+    tied at the maximum, which differs from the earliest window's bits only
+    where the maximum is a zero reached as both -0.0 and +0.0. Such cells
+    take the bits of the last zero in their block, as the kernel does.
+
+    Returns (A [G, nl, nr] float32, pos [G, nl, nr] int32, counts [G]
+    int64). Ghosts are taken in chunks of ``budget_bytes`` of A (default:
+    1 MB on the CPU, which keeps a chunk in cache across the windows,
+    256 MB elsewhere); the result does not depend on the chunk.
+    """
+    G, W, nl = L.shape
+    nr = R.shape[2]
+    eps = eps.to(torch.float32)
+    dev = L.device
+    A = torch.full((G, nl, nr), NEG_INF, dtype=torch.float32, device=dev)
+    pos = torch.zeros((G, nl, nr), dtype=torch.int32, device=dev)
+    counts = torch.zeros(G, dtype=torch.int64, device=dev)
+    if budget_bytes is None:
+        budget_bytes = 1 << 20 if dev.type == "cpu" else 1 << 28
+    gc = max(1, budget_bytes // max(1, nl * nr * 4))
+    for g0 in range(0, G, gc):
+        g1 = min(G, g0 + gc)
+        Ag, Pg = A[g0:g1], pos[g0:g1]
+        for w in range(W):
+            T = L[g0:g1, w, :, None] + R[g0:g1, w, None, :]
+            counts[g0:g1] += (T > eps).sum(dim=(1, 2))
+            better = T > Ag
+            torch.where(better, T, Ag, out=Ag)
+            Pg.masked_fill_(better, w)
+    dead = ~(A > eps)
+    A.masked_fill_(dead, NEG_INF)
+    pos.masked_fill_(dead, 0)
+    g, i, j = torch.nonzero(A == 0, as_tuple=True)
+    if len(g):
+        # the zero seam: the last zero of the earliest window's block
+        bw = min(block_w, W)
+        p = pos[g, i, j].to(torch.int64)
+        block = torch.clamp(torch.div(p, bw, rounding_mode="floor"),
+                            max=-(-W // bw) - 1)
+        end = torch.clamp(block * bw, max=W - bw) + bw
+        val = A[g, i, j]
+        for w in range(W):
+            t = L[g, w, i] + R[g, w, j]
+            val = torch.where((w > p) & (w < end) & (t == 0), t, val)
+        A[g, i, j] = val
+    return A, pos, counts
+
+
 def group_max(A_ghost: torch.Tensor, ghosts_per_group: int) -> torch.Tensor:
     """Merge the adjacent ghosts of each original branch by max:
     [G, K] → [G / ghosts_per_group, K] (``db_builder.cpp:641-665``)."""
     G, K = A_ghost.shape
     return A_ghost.reshape(G // ghosts_per_group, ghosts_per_group,
                            K).amax(dim=1)
+
+
+def group_max_with_positions(A_ghost: torch.Tensor, pos_ghost: torch.Tensor,
+                             ghosts_per_group: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`group_max` carrying positions: a strictly greater ghost
+    replaces, so the first ghost in group order wins ties (X1 before X0,
+    extended postorder). [G, K] twice → [G / ghosts_per_group, K] twice."""
+    G, K = A_ghost.shape
+    B = G // ghosts_per_group
+    A = A_ghost.reshape(B, ghosts_per_group, K)
+    pos = pos_ghost.reshape(B, ghosts_per_group, K)
+    best_A, best_pos = A[:, 0], pos[:, 0]
+    for g in range(1, ghosts_per_group):
+        better = A[:, g] > best_A
+        best_A = torch.where(better, A[:, g], best_A)
+        best_pos = torch.where(better, pos[:, g], best_pos)
+    return best_A, best_pos
 
 
 def _check_index_range(A: torch.Tensor, name: str) -> None:

@@ -17,9 +17,10 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .dense import combine_max_ref
+from .dense import combine_max_ref, combine_max_with_positions_ref
 
-__all__ = ["combine_max", "staircase_select", "STAIRCASE_MAX_WIDTH"]
+__all__ = ["combine_max", "combine_max_with_positions", "staircase_select",
+           "STAIRCASE_MAX_WIDTH"]
 
 
 def _check_eps(eps: torch.Tensor) -> float:
@@ -27,6 +28,30 @@ def _check_eps(eps: torch.Tensor) -> float:
             and eps.dtype == torch.float32):
         raise TypeError("eps must be a 0-d float32 tensor")
     return float(eps)     # exact: an f32 value round-trips through f64
+
+
+def _check_halves(name: str, L: torch.Tensor, R: torch.Tensor) -> None:
+    """Raise unless L [G, W, nl] and R [G, W, nr] are float32 on one CPU or
+    CUDA device (and contiguous there)."""
+    if L.dim() != 3 or R.dim() != 3 or L.shape[:2] != R.shape[:2]:
+        raise ValueError(f"{name}: L {tuple(L.shape)} and R "
+                         f"{tuple(R.shape)} must be [G, W, nl] and [G, W, nr]")
+    if L.dtype != torch.float32 or R.dtype != torch.float32:
+        raise TypeError(f"{name}: L and R must be float32, got "
+                        f"{L.dtype} and {R.dtype}")
+    if L.device != R.device:
+        raise ValueError(f"{name}: L on {L.device}, R on {R.device}")
+    if L.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {L.device}")
+    if L.device.type == "cuda" and not (L.is_contiguous()
+                                        and R.is_contiguous()):
+        raise ValueError(f"{name}: L and R must be contiguous")
+
+
+def _raise_on_launch_error(lib, name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                           f"{rc} ({lib.ipk_cuda_error_string(rc).decode()})")
 
 
 def combine_max(L: torch.Tensor, R: torch.Tensor, eps: torch.Tensor
@@ -40,20 +65,9 @@ def combine_max(L: torch.Tensor, R: torch.Tensor, eps: torch.Tensor
     ``csrc/combine_max.cu``.
     """
     eps_f = _check_eps(eps)
-    if L.dim() != 3 or R.dim() != 3 or L.shape[:2] != R.shape[:2]:
-        raise ValueError(f"combine_max: L {tuple(L.shape)} and R "
-                         f"{tuple(R.shape)} must be [G, W, nl] and [G, W, nr]")
-    if L.dtype != torch.float32 or R.dtype != torch.float32:
-        raise TypeError(f"combine_max: L and R must be float32, got "
-                        f"{L.dtype} and {R.dtype}")
-    if L.device != R.device:
-        raise ValueError(f"combine_max: L on {L.device}, R on {R.device}")
+    _check_halves("combine_max", L, R)
     if L.device.type == "cpu":
         return combine_max_ref(L, R, eps)
-    if L.device.type != "cuda":
-        raise ValueError(f"combine_max: unsupported device {L.device}")
-    if not (L.is_contiguous() and R.is_contiguous()):
-        raise ValueError("combine_max: L and R must be contiguous")
     lib = _build.load()
     G, W, nl = L.shape
     nr = R.shape[2]
@@ -65,14 +79,49 @@ def combine_max(L: torch.Tensor, R: torch.Tensor, eps: torch.Tensor
         ctypes.c_float(eps_f), ctypes.c_void_p(A.data_ptr()),
         ctypes.c_void_p(counts.data_ptr()), G, W, nl, nr, L.device.index,
         ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"combine_max kernel launch failed: CUDA error "
-                           f"{rc} ({lib.ipk_cuda_error_string(rc).decode()})")
+    _raise_on_launch_error(lib, "combine_max", rc)
     combine_max.launches += 1
     return A, counts
 
 
 combine_max.launches = 0
+
+
+def combine_max_with_positions(L: torch.Tensor, R: torch.Tensor,
+                               eps: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """:func:`combine_max` plus, per cell, the earliest window of its
+    maximum (the ``--keep-positions`` accumulator).
+
+    Same inputs and checks as :func:`combine_max`. Returns (A [G, nl, nr]
+    float32, pos [G, nl, nr] int32, counts [G] int64); dead cells are
+    (-inf, 0). CPU tensors go to :func:`combine_max_with_positions_ref` (at
+    ``ipk_tpu``'s window block of 32, which the kernel follows); CUDA tensors
+    to the positions mode of the kernel in ``csrc/combine_max.cu``.
+    """
+    eps_f = _check_eps(eps)
+    _check_halves("combine_max_with_positions", L, R)
+    if L.device.type == "cpu":
+        return combine_max_with_positions_ref(L, R, eps)
+    lib = _build.load()
+    G, W, nl = L.shape
+    nr = R.shape[2]
+    A = torch.empty((G, nl, nr), dtype=torch.float32, device=L.device)
+    pos = torch.empty((G, nl, nr), dtype=torch.int32, device=L.device)
+    counts = torch.zeros(G, dtype=torch.int64, device=L.device)
+    stream = torch.cuda.current_stream(L.device).cuda_stream
+    rc = lib.ipk_combine_max_positions(
+        *(ctypes.c_void_p(t.data_ptr()) for t in (L, R)),
+        ctypes.c_float(eps_f),
+        *(ctypes.c_void_p(t.data_ptr()) for t in (A, pos, counts)),
+        G, W, nl, nr, L.device.index, ctypes.c_void_p(stream))
+    _raise_on_launch_error(lib, "combine_max_with_positions", rc)
+    combine_max_with_positions.launches += 1
+    return A, pos, counts
+
+
+combine_max_with_positions.launches = 0
 
 #: the kernel's widest list and cap (its shared-memory staging holds both
 #: lists padded to a power of two plus the row offsets: 160 KB at 8192)
@@ -146,10 +195,7 @@ def staircase_select(sL: torch.Tensor, cL: torch.Tensor, sR: torch.Tensor,
         *(ctypes.c_void_p(t.data_ptr()) for t in
           (sL, cL, sR, cR, eps, out_cl, out_cr, out_s, totals)),
         G * W, CL, CR, cap, int(sort_l), dev.index, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(
-            f"staircase_select kernel launch failed: CUDA error {rc} "
-            f"({lib.ipk_cuda_error_string(rc).decode()})")
+    _raise_on_launch_error(lib, "staircase_select", rc)
     staircase_select.launches += 1
     return out_cl, out_cr, out_s, totals
 

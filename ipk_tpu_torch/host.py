@@ -5,7 +5,8 @@ These are copies, verbatim in behaviour, of the numpy helpers of
 ``ipk_tpu/builder.py`` (``log_threshold_f32``, ``pick_key_batches``,
 ``_Progress``, ``BuildResult``, ``_prefetch``, ``_extract_batch``,
 ``_extract_compact``, ``_extract_from_lists``, ``_extract_sorted_stream``,
-``_sort_batch``, ``_apply_range_gather``, ``_range_gather``). They are
+``_sort_batch``, ``_apply_range_gather``, ``_range_gather``, and the
+``--on-disk`` merge ``_MergeBuffer`` and ``_merge_on_disk``). They are
 copied because that module imports jax at the top, and the port runs where
 jax is not installed. One shared jax-free module for both packages is
 ROADMAP.md's follow-up.
@@ -14,13 +15,16 @@ ROADMAP.md's follow-up.
 from __future__ import annotations
 
 import ctypes
+import os
 import queue
+import shutil
 import sys
 import threading
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from ipk_tpu import serialize
 from ipk_tpu.core.filter import (RandomFilterStream, _load_native,
                                  mif0_filter_values_entries, score_threshold)
 from ipk_tpu.db import PhyloKmerDB
@@ -336,3 +340,133 @@ def _range_gather(offs: np.ndarray, counts: np.ndarray,
     idx = np.arange(total, dtype=np.int64)
     run = np.repeat(np.arange(len(order), dtype=np.int64), reps)
     return starts[run] + (idx - out_offs[run])
+
+
+class _MergeBuffer:
+    """One loader's resident rows during the out-of-core merge."""
+
+    def __init__(self, loader: "serialize.BatchLoader", block_rows: int):
+        self.loader = loader
+        self.block_rows = block_rows
+        self.cols: Optional[tuple] = None    # (keys, fvs, counts, br, sc, po)
+
+    def fill(self) -> None:
+        if self.cols is None:
+            block = self.loader.read_block(self.block_rows)
+            if block is not None:
+                self.cols = block
+
+    @property
+    def rows(self) -> int:
+        return 0 if self.cols is None else len(self.cols[0])
+
+    def bound(self):
+        """(fv, key) of the last resident row — rows still on disk all sort
+        at or after it (the batch file is sorted ascending)."""
+        keys, fvs = self.cols[0], self.cols[1]
+        return (fvs[-1], keys[-1])
+
+    def take_upto(self, cut) -> Optional[tuple]:
+        """Split off the prefix with (fv, key) <= cut (None keeps all)."""
+        keys, fvs, counts, br, sc, po = self.cols
+        if cut is None:
+            m = len(keys)
+        else:
+            cut_fv, cut_key = cut
+            mask = (fvs < cut_fv) | ((fvs == cut_fv) & (keys <= cut_key))
+            m = int(mask.sum())     # sorted buffer: the mask is a prefix
+        if m == 0:
+            return None
+        ne = int(counts[:m].sum())
+        taken = (keys[:m], fvs[:m], counts[:m], br[:ne], sc[:ne],
+                 None if po is None else po[:ne])
+        if m == len(keys):
+            self.cols = None
+        else:
+            self.cols = (keys[m:], fvs[m:], counts[m:], br[ne:], sc[ne:],
+                         None if po is None else po[ne:])
+        return taken
+
+
+def _merge_on_disk(db: PhyloKmerDB, temp_files: List[str],
+                   output_filename: Optional[str], uncompressed: bool,
+                   positions: bool = False,
+                   block_rows: int = 1 << 16) -> None:
+    """Out-of-core k-way merge of sorted batch DBs into the output archive
+    (``merge_stage2``, ``db_builder.cpp:392-458``).
+
+    Batches are key-disjoint and internally sorted ascending by (fv, key), so
+    a streaming merge yields the global order. The reference advances one
+    record at a time through a priority queue of lazy cursors; the vectorized
+    equivalent advances one *block* at a time: refill every buffer, cut at
+    the smallest last-resident (fv, key) among loaders that still have rows
+    on disk (rows beyond a cut cannot interleave before it), lexsort the cut
+    prefix, spill the five columns to temp section files, and finally stream
+    the sections through the compressor. Peak memory is
+    O(block_rows · num_batches), independent of database size.
+    """
+    if not output_filename:
+        raise RuntimeError("--on-disk requires an output filename")
+    loaders = [serialize.BatchLoader(f, block_rows=block_rows)
+               for f in temp_files]
+    total_kmers = sum(l.get_num_kmers() for l in loaders)
+    total_entries = sum(l.num_entries for l in loaders)
+    buffers = [_MergeBuffer(l, block_rows) for l in loaders]
+
+    spill_names = ["keys", "fvs", "counts", "branches", "scores"]
+    if positions:
+        spill_names.append("positions")
+    spill_dir = output_filename + ".merge"
+    os.makedirs(spill_dir, exist_ok=True)
+    spills = {n: open(os.path.join(spill_dir, n + ".bin"), "wb")
+              for n in spill_names}
+    try:
+        while True:
+            for b in buffers:
+                b.fill()
+            live = [b for b in buffers if b.rows]
+            if not live:
+                break
+            bounding = [b.bound() for b in live if b.loader.rows_left() > 0]
+            cut = min(bounding) if bounding else None
+            taken = [t for b in live if (t := b.take_upto(cut)) is not None]
+            if not taken:       # all resident rows sort after the cut
+                continue
+            keys = np.concatenate([t[0] for t in taken])
+            fvs = np.concatenate([t[1] for t in taken])
+            counts = np.concatenate([t[2] for t in taken])
+            order = np.lexsort((keys, fvs))
+            offs = np.zeros(len(keys) + 1, dtype=np.int64)
+            np.cumsum(counts, out=offs[1:])
+            gather = _range_gather(offs, counts, order)
+            spills["keys"].write(
+                np.ascontiguousarray(keys[order], "<u8").tobytes())
+            spills["fvs"].write(
+                np.ascontiguousarray(fvs[order], "<f4").tobytes())
+            spills["counts"].write(
+                np.ascontiguousarray(counts[order], "<u8").tobytes())
+            br = np.concatenate([t[3] for t in taken])
+            sc = np.concatenate([t[4] for t in taken])
+            spills["branches"].write(
+                np.ascontiguousarray(br[gather], "<u4").tobytes())
+            spills["scores"].write(
+                np.ascontiguousarray(sc[gather], "<f4").tobytes())
+            if positions:
+                po = np.concatenate([t[5] for t in taken])
+                spills["positions"].write(
+                    np.ascontiguousarray(po[gather], "<u4").tobytes())
+    finally:
+        for f in spills.values():
+            f.close()
+        for l in loaders:
+            l.close()
+
+    with serialize.IpkWriter(output_filename,
+                             compressed=not uncompressed) as w:
+        w.write_header(db, total_kmers, total_entries)
+        for name in spill_names:
+            path = os.path.join(spill_dir, name + ".bin")
+            with open(path, "rb") as f:
+                while chunk := f.read(1 << 22):
+                    w.write_raw(chunk)
+    shutil.rmtree(spill_dir, ignore_errors=True)

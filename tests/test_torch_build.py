@@ -1,4 +1,5 @@
-"""The port's dense build end to end on the CPU, against ipk_tpu.
+"""The port's builds end to end on the CPU, against ipk_tpu: the dense and
+sparse paths, --keep-positions, --on-disk and --device-mi on one device.
 
 Tolerance: none. Databases are compared by their decompressed payload (every
 header field, column byte and row order), as tests/test_golden.py does.
@@ -9,6 +10,7 @@ import subprocess
 import sys
 import zlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -249,22 +251,32 @@ def test_cli_build_diff_dump(tmp_path):
 @pytest.mark.parametrize("what", ["keep_positions", "on_disk", "ar_native",
                                   "profile"])
 def test_unported_modes_raise(tmp_path, what):
+    """Of the modes the first port left out, only --profile still raises
+    NotImplementedError naming its ROADMAP item; --keep-positions,
+    --on-disk and --ar native build a database now."""
     tree_file, fasta_file, ar_dir = make_project(tmp_path, num_leaves=4,
                                                  width=20, seed=8)
+    out = str(tmp_path / "x.ipk")
     params = BuildParams(refalign=fasta_file, reftree=tree_file,
                          working_dir=str(tmp_path / "wd"), ar_dir=ar_dir,
-                         kmer_size=5, output_filename=str(tmp_path / "x.ipk"),
-                         verbosity=0, device="cpu")
+                         kmer_size=5, output_filename=out, verbosity=0,
+                         device="cpu")
+    if what == "profile":
+        params.profile_dir = str(tmp_path / "trace")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
+            build_database(params)
+        return
     if what == "keep_positions":
         params.keep_positions = True
     elif what == "on_disk":
         params.on_disk = True
-    elif what == "ar_native":
-        params.ar_dir, params.ar_binary = "", "native"
     else:
-        params.profile_dir = str(tmp_path / "trace")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        build_database(params)
+        params.ar_dir, params.ar_binary = "", "native"
+    build_database(params)
+    from ipk_tpu import serialize
+    db = serialize.load(out)
+    assert db.size() > 0
+    assert (db.positions is not None) == (what == "keep_positions")
 
 
 def test_cli_multi_host_raises(tmp_path):
@@ -286,26 +298,213 @@ def test_cuda_requested_without_card_raises():
 
 
 def test_port_runs_without_jax_or_click(tmp_path):
-    """The port's CLI and pipeline import, and build on the dense (k=4) and
-    the sparse (k=12) path, with neither jax nor click loaded."""
+    """The port's CLI, pipeline, placement and native AR import, and build
+    on the dense (k=4) and the sparse (k=12) path, with positions, on disk
+    and from the native AR with its ML fit, with neither jax nor click (nor
+    optax) loaded."""
     tree_file, fasta_file, ar_dir = make_project(tmp_path, num_leaves=4,
                                                  width=20, seed=4)
     script = (
         "import sys\n"
         "import ipk_tpu_torch.cli, ipk_tpu_torch.pipeline as pl\n"
-        "for k, omega in ((4, 1.5), (12, 2.0)):\n"
+        "import ipk_tpu_torch.placement\n"
+        "import ipk_tpu_torch.ar.native, ipk_tpu_torch.ar.optimize\n"
+        "from ipk_tpu import serialize\n"
+        "runs = [dict(kmer_size=4, omega=1.5), dict(kmer_size=12, omega=2.0),"
+        " dict(kmer_size=4, omega=1.5, keep_positions=True),"
+        " dict(kmer_size=12, omega=2.0, on_disk=True),"
+        " dict(kmer_size=4, omega=1.5, ar_dir='', ar_binary='native',"
+        " ar_optimize=True, ar_opt_steps=2)]\n"
+        "for n, kw in enumerate(runs):\n"
+        f"    kw = {{'ar_dir': {ar_dir!r}, **kw}}\n"
+        f"    out = {str(tmp_path)!r} + f'/DB{{n}}.ipk'\n"
         f"    r = pl.build_database(pl.BuildParams(refalign={fasta_file!r}, "
-        f"reftree={tree_file!r}, working_dir={str(tmp_path / 'wd')!r}, "
-        f"ar_dir={ar_dir!r}, kmer_size=k, omega=omega, "
-        f"output_filename={str(tmp_path / 'DB.ipk')!r}, verbosity=0, "
-        "device='cpu'))\n"
-        "    assert r.db.size() > 0, k\n"
-        "assert r.stats['final_caps'], 'k=12 did not take the sparse path'\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
-        "assert 'click' not in sys.modules, 'click imported'\n"
+        f"reftree={tree_file!r}, working_dir={str(tmp_path)!r} + f'/wd{{n}}', "
+        "output_filename=out, verbosity=0, device='cpu', **kw))\n"
+        "    assert serialize.load(out).size() > 0, kw\n"
+        "    if n == 1:\n"
+        "        assert r.stats['final_caps'], 'k=12 took the dense path'\n"
+        "for mod in ('jax', 'click', 'optax'):\n"
+        "    assert mod not in sys.modules, mod + ' imported'\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
                        env=subprocess_env(), capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
+
+
+# ---------------------------------------------------------------------------
+# --keep-positions, --on-disk, --device-mi on one device
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,opts", [
+    ("pos", {}),
+    ("pos_merge", {"merge_branches": True}),
+    ("pos_kb1", {"key_batches": 1}),
+    ("pos_kb2", {"key_batches": 2}),
+])
+def test_port_matches_jax_build_positions(dna_project, monkeypatch, name,
+                                          opts):
+    from ipk_tpu import serialize
+    jax_out, torch_out = build_pair(dna_project, name, monkeypatch,
+                                    keep_positions=True, **opts)
+    assert payload(torch_out) == payload(jax_out)
+    db = serialize.load(torch_out)
+    assert db.positions is not None and db.size() > 0
+
+
+@pytest.mark.parametrize("name,opts", [
+    ("aa_pos", {}),
+    ("aa_pos_merge", {"merge_branches": True}),
+])
+def test_port_matches_jax_build_positions_amino(aa_project, monkeypatch,
+                                                name, opts):
+    """The amino setup of test_builder_modes.py's positions test (5 taxa x
+    15 sites, k=3, omega 4.0): positions are window starts in [0, S - k]."""
+    from ipk_tpu import serialize
+    jax_out, torch_out = build_pair(aa_project, name, monkeypatch,
+                                    keep_positions=True, **opts)
+    assert payload(torch_out) == payload(jax_out)
+    db = serialize.load(torch_out)
+    assert db.size() > 0 and db.positions.max() <= 15 - 3
+
+
+def test_positions_earliest_window_tiebreak():
+    """A constant matrix ties every window: each position is window 0
+    (tests/test_builder_modes.py's check, through the port's stage 1)."""
+    from ipk_tpu_torch.core.dense import best_score_prefix
+    P = np.full((2, 10, 4), np.log10(0.25), dtype=np.float32)
+    batches = list(torch_builder._enumerate_batches(
+        P, best_score_prefix(P), k=2, sigma=4,
+        eps=torch_builder.log_threshold_f32(0.9, 4, 2), ghosts_per_group=2,
+        key_batches=1, device=torch.device("cpu"), stats={},
+        keep_positions=True))
+    tag, lo, A, pos, count = batches[0]
+    assert tag == "dense" and pos.dtype == np.int32
+    assert np.isfinite(A).any() and (pos == 0).all()
+
+
+@pytest.mark.parametrize("name,opts", [
+    ("disk_kb1", {"key_batches": 1}),
+    ("disk_kb2", {"key_batches": 2}),
+    ("disk_kb4", {"key_batches": 4}),
+    ("disk_sparse", {"sparse": True}),
+])
+def test_port_matches_jax_build_on_disk(dna_project, monkeypatch, name,
+                                        opts):
+    """--on-disk: payload-equal to ipk_tpu's on-disk build and to the
+    port's in-RAM build; the temporary hashmaps/ directory is gone; the
+    returned database holds no arrays."""
+    tmp, states, k, omega, tree_file, fasta_file, ar_dir = dna_project
+    jax_out, torch_out = build_pair(dna_project, name, monkeypatch,
+                                    on_disk=True, **opts)
+    assert payload(torch_out) == payload(jax_out)
+    ram_out = str(tmp / f"{name}_ram.ipk")
+    build_database(BuildParams(
+        refalign=fasta_file, reftree=tree_file, states=states,
+        working_dir=str(tmp / f"wd_{name}_ram"), ar_dir=ar_dir, kmer_size=k,
+        omega=omega, output_filename=ram_out, verbosity=0, device="cpu"))
+    assert payload(torch_out) == payload(ram_out)
+    assert not os.path.exists(str(tmp / f"wd_{name}_torch" / "hashmaps"))
+    result = build_database(BuildParams(
+        refalign=fasta_file, reftree=tree_file, states=states,
+        working_dir=str(tmp / f"wd_{name}_again"), ar_dir=ar_dir,
+        kmer_size=k, omega=omega, output_filename=str(tmp / "again.ipk"),
+        on_disk=True, verbosity=0, device="cpu"))
+    assert result.db.size() == 0 and "sort" not in result.timings
+    assert {"computation", "filter_merge", "host_extract"} <= set(
+        result.timings)
+
+
+def test_merge_on_disk_orders_by_stored_filter_value(tmp_path):
+    """The on-disk merge orders rows by the float32 filter values it reads
+    back, then by key, exactly as ipk_tpu's does: where two batches hold
+    keys whose float64 values differ but round to one float32, the merged
+    order is not the in-RAM (float64) order. Byte-equal to ipk_tpu's."""
+    from ipk_tpu import serialize
+    from ipk_tpu.db import PhyloKmerDB
+    from ipk_tpu_torch.host import _merge_on_disk
+    base = np.float32(0.25)
+    step = np.float64(np.spacing(base)) / 8     # below float32 resolution
+    batches = [  # (keys, float64 filter values), each sorted by (fv, key)
+        (np.array([9, 3, 12], np.uint64),
+         np.array([0.1, base + step, base + 3 * step])),
+        (np.array([7, 1, 5], np.uint64),
+         np.array([0.05, base + 2 * step, 0.5])),
+    ]
+    files = []
+    for n, (keys, fv) in enumerate(batches):
+        db = PhyloKmerDB(2, 1.5, "nucl", "", [])
+        offsets = np.arange(len(keys) + 1, dtype=np.int64)
+        db.set_data(keys, fv.astype(np.float32), offsets,
+                    np.full(len(keys), n, np.uint32),
+                    np.full(len(keys), -0.5, np.float32))
+        files.append(str(tmp_path / f"{n}.ipk"))
+        serialize.save(db, files[-1], compressed=False)
+    outs = []
+    for name, merge in (("torch", _merge_on_disk),
+                        ("jax", jax_builder._merge_on_disk)):
+        outs.append(str(tmp_path / f"merged_{name}.ipk"))
+        merge(PhyloKmerDB(2, 1.5, "nucl", "(a,b)r;", []), files, outs[-1],
+              uncompressed=False, block_rows=2)
+    assert payload(outs[0]) == payload(outs[1])
+    merged = serialize.load(outs[0])
+    # in-RAM (float64) order would be 7, 9, 3, 1, 12, 5
+    assert merged.keys.tolist() == [7, 9, 1, 3, 12, 5]
+
+
+def test_on_disk_rejects_positions(aa_project):
+    tmp, states, k, omega, tree_file, fasta_file, ar_dir = aa_project
+    with pytest.raises(RuntimeError, match="Positions are not supported"):
+        build_database(BuildParams(
+            refalign=fasta_file, reftree=tree_file, states=states,
+            working_dir=str(tmp / "wd_disk_pos"), ar_dir=ar_dir,
+            kmer_size=k, omega=omega, output_filename=str(tmp / "x.ipk"),
+            keep_positions=True, on_disk=True, verbosity=0, device="cpu"))
+
+
+def test_device_mi_one_device_notes_and_falls_back(dna_project, capsys):
+    """--device-mi on one device: ipk_tpu's note, then the host f64 filter,
+    so the database equals the plain build's."""
+    tmp, states, k, omega, tree_file, fasta_file, ar_dir = dna_project
+    outs = []
+    for name, device_mi in (("mi_off", False), ("mi_on", True)):
+        out = str(tmp / f"{name}.ipk")
+        build_database(BuildParams(
+            refalign=fasta_file, reftree=tree_file, states=states,
+            working_dir=str(tmp / f"wd_{name}"), ar_dir=ar_dir, kmer_size=k,
+            omega=omega, output_filename=out, device_mi=device_mi,
+            verbosity=1, device="cpu"))
+        outs.append(payload(out))
+    assert outs[0] == outs[1]
+    assert "falling back to the host f64 filter" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("ar_binary", ["", "native"])
+def test_ar_optimize_replays_ar_dir(dna_project, ar_binary):
+    """--ar-optimize acts on the native route only: with --ar-dir the AR is
+    replayed, whatever --ar says, as in ipk_tpu/pipeline.py."""
+    tmp, states, k, omega, tree_file, fasta_file, ar_dir = dna_project
+    outs = []
+    for name, optimize in ((f"replay_{ar_binary}", False),
+                           (f"replay_opt_{ar_binary}", True)):
+        out = str(tmp / f"{name}.ipk")
+        build_database(BuildParams(
+            refalign=fasta_file, reftree=tree_file, states=states,
+            working_dir=str(tmp / f"wd_{name}"), ar_dir=ar_dir,
+            ar_binary=ar_binary, ar_optimize=optimize, kmer_size=k,
+            omega=omega, output_filename=out, verbosity=0, device="cpu"))
+        outs.append(payload(out))
+    assert outs[0] == outs[1]
+
+
+def test_choose_key_batches_positions_skip_split():
+    """ipk_tpu splits big accumulators 4/2 ways for overlap, but not for
+    --keep-positions builds (ipk_tpu/builder.py:774)."""
+    from ipk_tpu_torch.host import pick_key_batches
+    n_groups, nl, nr = 510, 256, 256
+    assert pick_key_batches(n_groups, nl, nr) == 1
+    assert torch_builder.choose_key_batches(n_groups, nl, nr) == 4
+    assert torch_builder.choose_key_batches(n_groups, nl, nr,
+                                            keep_positions=True) == 1

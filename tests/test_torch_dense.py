@@ -187,3 +187,101 @@ def test_survivor_index_guard(fn):
     big = torch.zeros(1).expand(1 << 31)     # 2^31 cells, no memory
     with pytest.raises(ValueError, match="int32 index range"):
         fn(big)
+
+
+# ---------------------------------------------------------------------------
+# positions (--keep-positions): the earliest window of each cell's maximum
+# ---------------------------------------------------------------------------
+
+def _assert_positions_equal(L, R, eps, block_w):
+    """combine_max_with_positions_ref against ipk_tpu's jnp function at the
+    same block_w: A (bit patterns), pos and int64 counts equal."""
+    A_j, p_j, c_j = jdense.combine_max_with_positions(
+        jnp.asarray(L), jnp.asarray(R), eps, block_w=block_w,
+        with_count=True)
+    A_t, p_t, c_t = tdense.combine_max_with_positions_ref(
+        torch.from_numpy(L), torch.from_numpy(R), torch.tensor(eps),
+        block_w=block_w)
+    assert A_t.dtype == torch.float32 and p_t.dtype == torch.int32
+    assert c_t.dtype == torch.int64
+    np.testing.assert_array_equal(A_t.numpy().view(np.uint32),
+                                  np.asarray(A_j).view(np.uint32))
+    np.testing.assert_array_equal(p_t.numpy(), np.asarray(p_j))
+    np.testing.assert_array_equal(c_t.numpy(),
+                                  np.asarray(c_j).astype(np.int64))
+    return A_t.numpy(), p_t.numpy(), c_t.numpy()
+
+
+@pytest.mark.parametrize("block_w", [4, 16, 32])
+@pytest.mark.parametrize("sigma,k,omega,S", [
+    (4, 5, 1.5, 42),     # W = 38: a multiple of none of the blocks
+    (20, 3, 4.0, 23),    # amino: W = 21
+])
+def test_positions_ref_on_halves(block_w, sigma, k, omega, S):
+    rng = np.random.default_rng(5 * k + sigma + block_w)
+    P, prefix = make_inputs(rng, 3, S, sigma)
+    eps = eps_for(omega, sigma, k)
+    L, R = torch_halves(P, prefix, eps, k, sigma)
+    A, pos, counts = _assert_positions_equal(L, R, eps, block_w)
+    W = S - k + 1
+    live = np.isfinite(A)
+    assert counts.sum() > 0 and live.any()
+    assert (pos[~live] == 0).all() and pos.max() < W
+
+
+@pytest.mark.parametrize("block_w", [4, 16, 32])
+def test_positions_ref_ties_and_signed_zeros(block_w):
+    """Rounded halves tie across windows, and zeros of both signs meet at a
+    zero maximum: the earliest window wins, and A keeps the bits ipk_tpu's
+    block max gives (the last tied window of the block)."""
+    rng = np.random.default_rng(block_w)
+    G, W, nl, nr = 2, 45, 12, 20
+    # values <= 0, so many cells peak at a zero reached as -0.0 and +0.0
+    L = -np.abs(np.round(rng.normal(size=(G, W, nl)), 0)).astype(np.float32)
+    R = -np.abs(np.round(rng.normal(size=(G, W, nr)), 0)).astype(np.float32)
+    L[rng.random(L.shape) < 0.4] = -0.0
+    R[rng.random(R.shape) < 0.3] = -0.0
+    R[rng.random(R.shape) < 0.2] = 0.0
+    L[rng.random(L.shape) < 0.1] = -np.inf
+    A, pos, _ = _assert_positions_equal(L, R, np.float32(-1.5), block_w)
+    zero = A == 0
+    assert zero.any() and np.signbit(A[zero]).any() \
+        and (~np.signbit(A[zero])).any()
+
+
+@pytest.mark.parametrize("block_w", [4, 32])
+def test_positions_ref_constant_matrix(block_w):
+    """Every window equal: each live position is window 0."""
+    L = np.full((2, 37, 6), -0.75, np.float32)
+    R = np.full((2, 37, 9), -0.5, np.float32)
+    A, pos, counts = _assert_positions_equal(L, R, np.float32(-2.0), block_w)
+    assert np.isfinite(A).all() and (pos == 0).all()
+    assert (counts == 37 * 6 * 9).all()
+
+
+def test_positions_ref_ghost_chunks():
+    """The ghost-chunked loop gives the same result at any chunk size."""
+    rng = np.random.default_rng(13)
+    L = rng.normal(size=(5, 40, 8)).astype(np.float32)
+    R = rng.normal(size=(5, 40, 16)).astype(np.float32)
+    L, R, eps = torch.from_numpy(L), torch.from_numpy(R), torch.tensor(
+        np.float32(0.5))
+    full = tdense.combine_max_with_positions_ref(L, R, eps)
+    small = tdense.combine_max_with_positions_ref(L, R, eps,
+                                                  budget_bytes=64)
+    for a, b in zip(full, small):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("ghosts", [1, 2, 3])
+def test_group_max_with_positions_matches(ghosts):
+    rng = np.random.default_rng(20 + ghosts)
+    A = np.round(_dense_accumulator(4, ghosts=ghosts, live=0.5), 0)
+    A = A.astype(np.float32)       # rounded: ties across ghosts
+    pos = rng.integers(0, 50, A.shape).astype(np.int32)
+    A_t, p_t = tdense.group_max_with_positions(torch.from_numpy(A),
+                                               torch.from_numpy(pos), ghosts)
+    A_j, p_j = jdense.group_max_with_positions(jnp.asarray(A),
+                                               jnp.asarray(pos), ghosts)
+    np.testing.assert_array_equal(A_t.numpy(), np.asarray(A_j))
+    np.testing.assert_array_equal(p_t.numpy(), np.asarray(p_j))

@@ -1,4 +1,5 @@
-"""ipk_tpu_torch.core.kernels: the CUDA kernel wrappers.
+"""ipk_tpu_torch.core.kernels: the CUDA kernel wrappers (combine_max, its
+positions mode, staircase_select).
 
 On the CPU a wrapper takes its plain version and leaves its launch count
 alone; the kernels themselves run only on a card, in the tests marked
@@ -87,6 +88,78 @@ def test_kernel_rejects_non_contiguous(cuda_device):
     L, R, eps = halves(4, nl=16, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.combine_max(L[:, :, :8], R, eps)
+
+
+def test_positions_cpu_tensor_takes_plain_version():
+    L, R, eps = halves(6)
+    before = kernels.combine_max_with_positions.launches
+    got = kernels.combine_max_with_positions(L, R, eps)
+    ref = dense.combine_max_with_positions_ref(L, R, eps)
+    assert kernels.combine_max_with_positions.launches == before
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["L_f64", "eps_float", "shape"])
+def test_positions_wrapper_rejects_bad_input(bad):
+    L, R, eps = halves(7)
+    if bad == "L_f64":
+        L = L.double()
+    elif bad == "eps_float":
+        eps = 0.5
+    else:
+        R = R[:, :-1]
+    with pytest.raises((TypeError, ValueError)):
+        kernels.combine_max_with_positions(L, R, eps)
+
+
+def positions_inputs(kind, G, W, nl, nr, device):
+    """Random halves, all-equal windows, or halves <= 0 full of -0.0 and
+    +0.0 (zero maxima reached with both signs)."""
+    if kind == "random":
+        return halves(8, G, W, nl, nr, device=device)
+    if kind == "constant":
+        L = torch.full((G, W, nl), -0.75)
+        R = torch.full((G, W, nr), -0.5)
+        return L.to(device), R.to(device), torch.tensor(
+            np.float32(-2.0), device=device)
+    rng = np.random.default_rng(9)
+    L = -np.abs(np.round(rng.normal(size=(G, W, nl)), 0)).astype(np.float32)
+    R = -np.abs(np.round(rng.normal(size=(G, W, nr)), 0)).astype(np.float32)
+    L[rng.random(L.shape) < 0.4] = -0.0
+    R[rng.random(R.shape) < 0.3] = -0.0
+    R[rng.random(R.shape) < 0.2] = 0.0
+    return (torch.from_numpy(L).to(device), torch.from_numpy(R).to(device),
+            torch.tensor(np.float32(-1.5), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,G,W,nl,nr", [
+    ("random", 2, 13, 12, 20), ("random", 3, 70, 33, 65),
+    ("random", 2, 40, 400, 400), ("random", 1, 0, 8, 8),
+    ("constant", 2, 37, 6, 9), ("signed_zeros", 2, 45, 12, 20),
+    ("signed_zeros", 1, 100, 40, 70)])
+def test_positions_kernel_matches_plain_on_card(cuda_device, kind, G, W, nl,
+                                                nr):
+    L, R, eps = positions_inputs(kind, G, W, nl, nr, cuda_device)
+    before = kernels.combine_max_with_positions.launches
+    A, pos, counts = kernels.combine_max_with_positions(L, R, eps)
+    torch.cuda.synchronize()
+    assert kernels.combine_max_with_positions.launches == before + 1
+    A_ref, pos_ref, counts_ref = dense.combine_max_with_positions_ref(
+        L, R, eps)
+    assert torch.equal(A.view(torch.int32), A_ref.view(torch.int32))
+    assert torch.equal(pos, pos_ref)
+    assert torch.equal(counts, counts_ref)
+    if kind == "constant":
+        assert bool((pos == 0).all())
+
+
+@pytest.mark.cuda
+def test_positions_kernel_rejects_non_contiguous(cuda_device):
+    L, R, eps = halves(4, nl=16, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.combine_max_with_positions(L[:, :, :8], R, eps)
 
 
 def staircase_inputs(seed, G=2, W=5, CL=20, CR=33, device="cpu",
