@@ -12,10 +12,14 @@ nvidia-smi. Imports nothing of JAX. Every phase raises on failure:
 3. kernel  — each kernel on the card against its plain PyTorch version on
              the same inputs, bit-equal (tolerance: none, the arithmetic is
              exactly rounded f32 and the sorts are total orders); kernel and
-             plain times:
-             * combine_max against combine_max_ref at ragged random halves,
-               AA k=4 halves (nl = nr = 400) and every key batch the phase-5
-               build launches on its real halves;
+             plain times, and each launch's bound (the larger of its bytes
+             over 3.35 TB/s and its operations over 67 TFLOP/s):
+             * combine_max against combine_max_ref (A bits and counts) at
+               ragged random halves, AA k=4 halves (nl = nr = 400) and every
+               key batch the phase-5 build launches on its real halves; at
+               each of those main-path launches a "[main path]" line with
+               the kernel's time, its time without the explored count (the
+               count's share), the bound, and the card;
              * staircase_select against staircase_select_ref at the shapes
                of tests/test_staircase_kernels.py with sort_l on and off,
                sign-bit codes with ±0.0 and tied scores, an overflowing
@@ -74,12 +78,16 @@ nvidia-smi. Imports nothing of JAX. Every phase raises on failure:
              1e-3``), then --ar native --ar-optimize on the card (the log
              likelihood must rise; time and steps/s).
 
-Kernel launch counts are reset just before each main path and read just
-after it: phases 4-5 (the dense path: combine_max), 6-7 (the sparse path:
-staircase_select), 8 (positions: combine_max_with_positions), 9 (on-disk:
-combine_max and staircase_select) and 11 (builds from native-AR
-posteriors: combine_max). The line before the last is a JSON
-object of the kernels; the last line is
+The synthetic projects are written by this script's own make_project,
+with ipk_tpu_torch's modules (the same files as the repository's test
+fixtures write). Kernel launch counts are reset just before each main path
+and read just after it: phases 4-5 (the dense path: combine_max), 6-7
+(the sparse path: staircase_select), 8 (positions:
+combine_max_with_positions), 9 (on-disk: combine_max and
+staircase_select) and 11 (builds from native-AR posteriors: combine_max). Two lines before the last is a JSON object of
+the kernels (name, route, source, replaces, launches, max_abs_err, ms,
+plain_ms, bound_ms, bound_by, library_ms), then the card's name and power
+limit as nvidia-smi prints them; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, when CUDA is unavailable or the
 repository is not beside this script.
@@ -108,6 +116,10 @@ READS = dict(n=100_000, length=150, subst=0.05, seed=21, check=2000)
 #: the phase-11 optimizer steps of --ar native --ar-optimize
 AR_OPT_STEPS = 30
 KERNELS = ("combine_max", "combine_max_with_positions", "staircase_select")
+#: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): device
+#: memory bytes/s and float32 operations/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
 #: phase-3 staircase shapes: (label, G, W, CL, CR, cap, input options)
 STAIRCASE_SHAPES = [
     ("tiny, unaligned", 1, 5, 20, 33, 128, {}),
@@ -131,6 +143,116 @@ def payload(path: str) -> bytes:
         return zlib.decompress(raw)
     except zlib.error:
         return raw
+
+
+# ---------------------------------------------------------------------------
+# Synthetic projects: tree file, alignment file and a replayable --ar-dir
+# (seeded random posteriors), written with ipk_tpu_torch's own modules. They
+# write the same files, byte for byte, as tests/fixtures.py:make_project at
+# the same arguments (tests/test_torch_host.py holds them to it).
+
+def random_tree_newick(rng, num_leaves: int) -> str:
+    """Random rooted binary tree with num_leaves labeled leaves."""
+    nodes = [f"L{i}:{rng.uniform(0.05, 1.0):.4f}" for i in range(num_leaves)]
+    while len(nodes) > 1:
+        i = rng.integers(0, len(nodes))
+        a = nodes.pop(i)
+        j = rng.integers(0, len(nodes))
+        b = nodes.pop(j)
+        bl = rng.uniform(0.05, 1.0)
+        nodes.append(f"({a},{b}):{bl:.4f}")
+    # root: strip the root's branch length
+    return nodes[0].rsplit(":", 1)[0] + "root;"
+
+
+def random_alignment(rng, leaf_labels, width: int, traits=None,
+                     gap_prob: float = 0.1):
+    from ipk_tpu_torch.alignment import Alignment
+    from ipk_tpu_torch.seq import DNA
+    letters = (traits or DNA).letters
+    seqs = []
+    for _ in leaf_labels:
+        chars = [
+            "-" if rng.random() < gap_prob
+            else letters[rng.integers(0, len(letters))]
+            for _ in range(width)]
+        seqs.append("".join(chars))
+    return Alignment(list(leaf_labels), seqs)
+
+
+def make_ar_tree(extended_tree):
+    """AR view of the extended tree: same topology, inner nodes relabeled
+    Node0..NodeN (as raxml-ng's ancestralTree), leaves unchanged."""
+    from ipk_tpu_torch.tree import postorder
+    ar = extended_tree.copy()
+    counter = 0
+    for node in postorder(ar.root):
+        if not node.is_leaf():
+            node.label = f"Node{counter}"
+            counter += 1
+    ar.index()
+    return ar
+
+
+def write_ancestral_probs(filename: str, ar_tree, width: int, rng,
+                          traits=None, concentration: float = 0.5) -> None:
+    """Synthetic .raxml.ancestralProbs: one block per internal node, one row
+    per site, raxml-ng's column order (alphabetical for AA; ACGT for DNA)."""
+    import numpy as np
+    from ipk_tpu_torch.ar.reader import RAXML_AA_ORDER
+    from ipk_tpu_torch.seq import DNA
+    from ipk_tpu_torch.tree import postorder
+    traits = traits or DNA
+    sigma = traits.alphabet_size
+    letters = RAXML_AA_ORDER if sigma == 20 else traits.letters
+    with open(filename, "w") as f:
+        f.write("Node\tSite\tState\t" +
+                "\t".join(f"p_{c.upper()}" for c in letters) + "\n")
+        for node in postorder(ar_tree.root):
+            if node.is_leaf():
+                continue
+            probs = rng.dirichlet(np.ones(sigma) * concentration, size=width)
+            probs = np.maximum(probs, 1e-12)
+            for site in range(width):
+                state = letters[int(np.argmax(probs[site]))]
+                row = "\t".join(f"{p:.9f}" for p in probs[site])
+                f.write(f"{node.label}\t{site+1}\t{state}\t{row}\n")
+
+
+def make_ar_dir(tmp_path, extended_tree, width: int, seed: int = 0,
+                traits=None):
+    """An --ar-dir with synthetic probs and tree for the extended tree."""
+    import numpy as np
+    from ipk_tpu_torch.tree import to_newick
+    rng = np.random.default_rng(seed)
+    ar_dir = os.path.join(str(tmp_path), "ar_out")
+    os.makedirs(ar_dir, exist_ok=True)
+    ar_tree = make_ar_tree(extended_tree)
+    with open(os.path.join(ar_dir, "align.raxml.ancestralTree"), "w") as f:
+        f.write(to_newick(ar_tree) + "\n")
+    write_ancestral_probs(os.path.join(ar_dir, "align.raxml.ancestralProbs"),
+                          ar_tree, width, rng, traits)
+    return ar_dir, ar_tree
+
+
+def make_project(tmp_path, num_leaves=6, width=30, seed=1, traits=None):
+    """Full synthetic project, gap-free: (tree_file, fasta_file, ar_dir)."""
+    import numpy as np
+    from ipk_tpu_torch.alignment import save_alignment
+    from ipk_tpu_torch.tree import extend_tree, parse_newick, postorder
+    rng = np.random.default_rng(seed)
+    newick = random_tree_newick(rng, num_leaves)
+    tree_file = os.path.join(str(tmp_path), "tree.newick")
+    with open(tree_file, "w") as f:
+        f.write(newick + "\n")
+    tree = parse_newick(newick)
+    leaves = [n.label for n in postorder(tree.root) if n.is_leaf()]
+    align = random_alignment(rng, leaves, width, traits, gap_prob=0.0)
+    fasta_file = os.path.join(str(tmp_path), "reference.fasta")
+    save_alignment(align, fasta_file, "fasta")
+    extended, _ = extend_tree(tree)
+    ar_dir, _ = make_ar_dir(tmp_path, extended, width, seed + 1, traits)
+    return tree_file, fasta_file, ar_dir
 
 
 def phase_device(torch):
@@ -173,6 +295,48 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(bytes_moved, ops):
+    """(least ms the card needs for the work, which of the two bounds it):
+    the bytes over the memory rate against the operations over the f32
+    rate."""
+    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def combine_bound(G, W, nl, nr, positions=False):
+    """combine_max's bound: L, R read once, A (and pos) and the counts
+    written once; one add and one max per candidate (the explored count
+    needs no operation per candidate)."""
+    cells = G * nl * nr
+    bytes_moved = 4 * G * W * (nl + nr) + 4 * cells * (2 if positions else 1)
+    return bound(bytes_moved + 8 * G, 2 * G * W * nl * nr)
+
+
+def uncounted_ms(torch, L, R, eps, reps):
+    """The main-path kernel without its explored count (the library's
+    measuring entry, not a wrapper: no launch is counted)."""
+    import ctypes
+    from ipk_tpu_torch.core import _build
+    lib = _build.load()
+    G, W, nl = L.shape
+    nr = R.shape[2]
+    A = torch.empty((G, nl, nr), dtype=torch.float32, device=L.device)
+    counts = torch.zeros(G, dtype=torch.int64, device=L.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(L.device).cuda_stream)
+
+    def call():
+        rc = lib.ipk_combine_max_uncounted(
+            ctypes.c_void_p(L.data_ptr()), ctypes.c_void_p(R.data_ptr()),
+            ctypes.c_float(float(eps)), ctypes.c_void_p(A.data_ptr()),
+            ctypes.c_void_p(counts.data_ptr()), G, W, nl, nr,
+            L.device.index, stream)
+        if rc:
+            raise RuntimeError(f"ipk_combine_max_uncounted failed: {rc}")
+    return time_ms(torch, call, reps)
+
+
 def compare_kernel(torch, label, L, R, eps, reps=5, plain_reps=2):
     """Kernel vs plain on one input: raises unless bit-equal."""
     from ipk_tpu_torch.core import dense, kernels
@@ -182,7 +346,8 @@ def compare_kernel(torch, label, L, R, eps, reps=5, plain_reps=2):
     same_mask = torch.equal(torch.isfinite(A), torch.isfinite(A_ref))
     live = torch.isfinite(A_ref)
     err = float((A[live] - A_ref[live]).abs().max()) if live.any() else 0.0
-    if not (same_mask and torch.equal(A, A_ref)
+    if not (same_mask and torch.equal(A.view(torch.int32),
+                                      A_ref.view(torch.int32))
             and torch.equal(counts, counts_ref)):
         raise RuntimeError(
             f"[kernel] {label}: kernel differs from combine_max_ref "
@@ -192,14 +357,17 @@ def compare_kernel(torch, label, L, R, eps, reps=5, plain_reps=2):
     plain_ms = time_ms(torch, lambda: dense.combine_max_ref(L, R, eps),
                        plain_reps)
     G, W, nl = L.shape
+    bound_ms, bound_by = combine_bound(G, W, nl, R.shape[2])
     log(f"[kernel] {label}: G={G} W={W} nl={nl} nr={R.shape[2]} bit-equal "
-        f"(A and counts, {int(counts.sum())} tuples); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
+        f"(A bits and counts, {int(counts.sum())} tuples); kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                tuples=int(counts.sum()))
+                tuples=int(counts.sum()), bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
-def phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir):
+def phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir, smi):
     import numpy as np
     from ipk_tpu_torch.builder import (choose_key_batches, stage1_inputs,
                                        stage1_state)
@@ -245,21 +413,35 @@ def phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir):
     runs = []
     for b in range(key_batches):
         Lb = L[:, :, b * step:(b + 1) * step].contiguous()
-        runs.append(compare_kernel(
-            torch, f"DNA k=8 scale project, key batch {b + 1}/{key_batches}",
-            Lb, R, eps, reps=5, plain_reps=1))
+        label = f"DNA k=8 scale project, key batch {b + 1}/{key_batches}"
+        run = compare_kernel(torch, label, Lb, R, eps, reps=5, plain_reps=1)
+        run["uncounted_ms"] = uncounted_ms(torch, Lb, R, eps, reps=5)
+        runs.append(run)
+        log(f"[main path] combine_max, {label}: L {tuple(Lb.shape)} x R "
+            f"{tuple(R.shape)}: kernel {run['ms']:.4f} ms (CUDA events, "
+            f"mean of 5 after a warm-up), without the explored count "
+            f"{run['uncounted_ms']:.4f} ms (the count "
+            f"{100 * (1 - run['uncounted_ms'] / run['ms']):.1f}% of the "
+            f"kernel; it is no separate launch); bound "
+            f"{run['bound_ms']:.4f} ms ({run['bound_by']}), kernel at "
+            f"{100 * run['bound_ms'] / run['ms']:.1f}% of it; {smi}")
         del Lb
     del L, R
     torch.cuda.empty_cache()
     res = dict(max_abs_err=max(r["max_abs_err"] for r in runs),
                ms=sum(r["ms"] for r in runs) / key_batches,
                plain_ms=sum(r["plain_ms"] for r in runs) / key_batches,
+               bound_ms=sum(r["bound_ms"] for r in runs) / key_batches,
+               bound_by=runs[0]["bound_by"],
+               uncounted_ms=sum(r["uncounted_ms"] for r in runs)
+               / key_batches,
                tuples=sum(r["tuples"] for r in runs))
     log(f"[kernel] DNA k=8 scale project: {key_batches} launches per build, "
         f"kernel {res['ms']:.4f} ms per launch, "
         f"{res['ms'] * key_batches:.4f} ms per build; plain "
         f"{res['plain_ms']:.4f} ms per launch, "
-        f"{res['plain_ms'] * key_batches:.4f} ms per build")
+        f"{res['plain_ms'] * key_batches:.4f} ms per build; bound "
+        f"{res['bound_ms']:.4f} ms per launch")
     return res
 
 
@@ -312,11 +494,19 @@ def compare_staircase(torch, label, args, cap, sort_l, reps=5, plain_reps=2):
     plain_ms = time_ms(torch, lambda: sparse.staircase_select_ref(
         *args, cap=cap, sort_l=sort_l), plain_reps)
     G, W, CL = args[0].shape
+    # inputs read once, every slot and total written once; one add a
+    # survivor written
+    bytes_moved = (sum(t.numel() * t.element_size() for t in args)
+                   + sum(t.numel() * t.element_size() for t in got))
+    bound_ms, bound_by = bound(bytes_moved,
+                               int(ref[3].clamp(max=cap).sum()))
     log(f"[kernel] staircase {label}: G={G} W={W} CL={CL} "
         f"CR={args[2].shape[2]} cap={cap} sort_l={sort_l} bit-equal "
         f"({int(ref[3].sum())} survivors, max total {int(ref[3].max())}); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir, tmp):
@@ -404,19 +594,21 @@ def phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir, tmp):
     torch.cuda.empty_cache()
     res = dict(max_abs_err=max(errs + [r["max_abs_err"] for r in runs]),
                ms=sum(r["ms"] for r in runs) / len(runs),
-               plain_ms=sum(r["plain_ms"] for r in runs) / len(runs))
+               plain_ms=sum(r["plain_ms"] for r in runs) / len(runs),
+               bound_ms=sum(r["bound_ms"] for r in runs) / len(runs),
+               bound_by=runs[0]["bound_by"])
     log(f"[kernel] staircase on the chunk: {len(runs)} launches per chunk "
         f"run, kernel {res['ms']:.4f} ms per launch, "
         f"{res['ms'] * len(runs):.4f} ms per chunk; plain "
         f"{res['plain_ms']:.4f} ms per launch, "
-        f"{res['plain_ms'] * len(runs):.4f} ms per chunk")
+        f"{res['plain_ms'] * len(runs):.4f} ms per chunk; bound "
+        f"{res['bound_ms']:.4f} ms per launch ({res['bound_by']})")
     return res
 
 
 def phase_goldens(torch, tmp):
     from ipk_tpu_torch.core import kernels
     from ipk_tpu_torch.pipeline import BuildParams, build_database, get_traits
-    from fixtures import make_project
     for proj, states, k, omega, golden in [
             ("D-dna", "nucl", 7, 2.0, "DB_k7_o2.0.ipk"),
             ("D-aa", "amino", 4, 10.0, "DB_k4_o10.ipk")]:
@@ -587,7 +779,6 @@ def run_cli(args, cwd, label):
 
 def phase_sparse_scale(torch, tmp, tree_file, fasta_file, ar_dir):
     import numpy as np
-    from fixtures import make_project
     from ipk_tpu_torch.core import kernels
     from ipk_tpu_torch.pipeline import BuildParams, build_database
     k, omega, cap = (SPARSE_SCALE["k"], SPARSE_SCALE["omega"],
@@ -680,18 +871,19 @@ def compare_positions(torch, label, L, R, eps, reps=5, plain_reps=1):
     plain_ms = time_ms(torch, lambda: dense.combine_max_with_positions_ref(
         L, R, eps), plain_reps)
     G, W, nl = L.shape
+    bound_ms, bound_by = combine_bound(G, W, nl, R.shape[2], positions=True)
     log(f"[positions] {label}: G={G} W={W} nl={nl} nr={R.shape[2]} "
         f"bit-equal (A, pos, counts; {int(live.sum())} live cells, "
         f"{int(zeros.sum())} zero maxima of which {n_neg_zero} -0.0, "
         f"max pos {int(pos.max()) if pos.numel() else 0}, "
         f"{int(counts.sum())} tuples); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 tuples=int(counts.sum()), pos=pos, zeros=int(zeros.sum()),
-                neg_zeros=n_neg_zero)
+                neg_zeros=n_neg_zero, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def phase_positions_kernel(torch, tmp, tree_file, fasta_file, ar_dir):
+def phase_positions_kernel(torch, tmp, tree_file, fasta_file, ar_dir, smi):
     """Phase 8, first part: the kernel's positions mode against its plain
     version (these launches are not the main path's)."""
     import numpy as np
@@ -752,15 +944,23 @@ def phase_positions_kernel(torch, tmp, tree_file, fasta_file, ar_dir):
     runs = []
     for b in range(key_batches):
         Lb = L[:, :, b * step:(b + 1) * step].contiguous()
-        runs.append(compare_positions(
-            torch, f"DNA k=8 scale project, --keep-positions key batch "
-            f"{b + 1}/{key_batches}", Lb, R, eps))
+        label = (f"DNA k=8 scale project, --keep-positions key batch "
+                 f"{b + 1}/{key_batches}")
+        run = compare_positions(torch, label, Lb, R, eps)
+        runs.append(run)
+        log(f"[main path] combine_max_with_positions, {label}: L "
+            f"{tuple(Lb.shape)} x R {tuple(R.shape)}: kernel "
+            f"{run['ms']:.4f} ms (CUDA events, mean of 5 after a warm-up); "
+            f"bound {run['bound_ms']:.4f} ms ({run['bound_by']}), kernel at "
+            f"{100 * run['bound_ms'] / run['ms']:.1f}% of it; {smi}")
         del Lb
     del L, R
     torch.cuda.empty_cache()
     res = dict(max_abs_err=max(errs + [r["max_abs_err"] for r in runs]),
                ms=sum(r["ms"] for r in runs) / key_batches,
                plain_ms=sum(r["plain_ms"] for r in runs) / key_batches,
+               bound_ms=sum(r["bound_ms"] for r in runs) / key_batches,
+               bound_by=runs[0]["bound_by"],
                launches_per_build=key_batches)
     log(f"[positions] DNA k=8 scale project: {key_batches} launch(es) per "
         f"--keep-positions build, kernel {res['ms']:.4f} ms per launch; "
@@ -1173,11 +1373,10 @@ def main() -> int:
         print("chip_smoke.py: the ipk_tpu_torch package is not beside this "
               "script; run it from the root of a checkout", file=sys.stderr)
         return 2
-    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+    sys.path.insert(0, REPO)
     import torch
     smi = phase_device(torch)
     phase_build()
-    from fixtures import make_project
     tmp = tempfile.mkdtemp(prefix="ipk_tpu_torch_smoke_")
     try:
         t0 = time.monotonic()
@@ -1187,7 +1386,7 @@ def main() -> int:
             pathlib.Path(scale_dir), num_leaves=SCALE["num_leaves"],
             width=SCALE["width"], seed=SCALE["seed"])
         log(f"[setup] scale project written in {time.monotonic() - t0:.1f} s")
-        kres = phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir)
+        kres = phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir, smi)
         sres = phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir,
                                       tmp)
         walls = {}
@@ -1213,7 +1412,7 @@ def main() -> int:
                                    ar_dir)))
         t_pk = time.monotonic()
         pres = phase_positions_kernel(torch, tmp, tree_file, fasta_file,
-                                      ar_dir)
+                                      ar_dir, smi)
         walls["positions kernel check"] = time.monotonic() - t_pk
         path("positions", (phase_positions, (torch, tmp, tree_file,
                                              fasta_file, ar_dir)))
@@ -1243,20 +1442,26 @@ def main() -> int:
         "launches": sum(counts[p]["combine_max"]
                         for p in ("dense", "on-disk", "native AR")),
         "max_abs_err": kres["max_abs_err"],
-        "ms": kres["ms"], "plain_ms": kres["plain_ms"]}, {
+        "ms": kres["ms"], "plain_ms": kres["plain_ms"],
+        "bound_ms": kres["bound_ms"], "bound_by": kres["bound_by"],
+        "library_ms": None}, {
         "name": "combine_max_with_positions", "route": "cuda",
         "source": "ipk_tpu_torch/core/csrc/combine_max.cu",
         "replaces": "ipk_tpu/core/dense.py:310",
         "launches": counts["positions"]["combine_max_with_positions"],
         "max_abs_err": pres["max_abs_err"],
-        "ms": pres["ms"], "plain_ms": pres["plain_ms"]}, {
+        "ms": pres["ms"], "plain_ms": pres["plain_ms"],
+        "bound_ms": pres["bound_ms"], "bound_by": pres["bound_by"],
+        "library_ms": None}, {
         "name": "staircase_select", "route": "cuda",
         "source": "ipk_tpu_torch/core/csrc/staircase_select.cu",
         "replaces": "ipk_tpu/core/pallas_kernels.py:404",
         "launches": sum(counts[p]["staircase_select"]
                         for p in ("sparse", "on-disk")),
         "max_abs_err": sres["max_abs_err"],
-        "ms": sres["ms"], "plain_ms": sres["plain_ms"]}]}))
+        "ms": sres["ms"], "plain_ms": sres["plain_ms"],
+        "bound_ms": sres["bound_ms"], "bound_by": sres["bound_by"],
+        "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

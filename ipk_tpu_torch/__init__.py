@@ -10,13 +10,20 @@ k ≤ 5), with ``--keep-positions``, and on the sparse large-k path (σ^k ≥
 ``--ar-optimize``); ``place``. The kernels are hand-written in CUDA C++ for
 Hopper: ``combine_max`` with its positions mode
 (``core/csrc/combine_max.cu``) and ``staircase_select``
-(``core/csrc/staircase_select.cu``). Framework-free host code (alignment,
-tree, AR reader, filters, serialization, host placement scorer, diff/dump)
-is imported from ``ipk_tpu``'s jax-free modules; helpers of modules that
-import jax are copied (``host``, ``ar``). Not ported: builds over more
-than one device and ``--profile``.
+(``core/csrc/staircase_select.cu``). The port imports nothing of
+``ipk_tpu``: its framework-free host code (alignment, tree, AR reader and
+bridge, filters, serialization, host placement scorer, diff/dump) is its
+own copy of ``ipk_tpu``'s jax-free modules, under the same relative paths,
+and the helpers of ``ipk_tpu`` modules that import jax are copied into
+``host`` and ``ar``. The native host libraries are built from the
+repository's ``native/*.cpp`` into ``build/ipk_tpu_torch/native/``. Not
+ported: builds over more than one device and ``--profile``.
 
 Layers:
+  seq / tree / alignment / db / serialize / tools / utils
+                       host modules (copies of ipk_tpu's jax-free ones)
+  ar.bridge / ar.reader / ar.mapping, core.filter
+                       AR subprocess and replay, posteriors, mif0/random
   device               the one torch.device a build runs on
   core.dense           masked half tensors, plain combine (with positions),
                        group max, compaction

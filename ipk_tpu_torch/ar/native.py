@@ -21,11 +21,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ipk_tpu.alignment import Alignment
-from ipk_tpu.seq import DNA, SeqTraits
-from ipk_tpu.tree import PhyloNode, PhyloTree, postorder, to_newick
-
 from .. import device as device_mod
+from ..alignment import Alignment
+from ..seq import DNA, SeqTraits
+from ..tree import PhyloNode, PhyloTree, postorder, to_newick
+from .reader import RAXML_AA_ORDER, aa_permutation
 
 __all__ = ["gtr_eigendecomposition", "gamma_category_rates",
            "ancestral_posteriors", "run_native_ar", "empirical_frequencies"]
@@ -217,8 +217,6 @@ def run_native_ar(extended_tree: PhyloTree, align: Alignment,
     (:func:`ipk_tpu_torch.ar.optimize.optimize_parameters`); the fitted
     branch lengths go into the ancestralTree artifact, as raxml-ng's do.
     """
-    from ipk_tpu.ar.reader import RAXML_AA_ORDER, aa_permutation
-
     ar_dir = os.path.join(working_dir, "AR")
     os.makedirs(ar_dir, exist_ok=True)
 

@@ -28,11 +28,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ipk_tpu.alignment import Alignment
-from ipk_tpu.seq import DNA, SeqTraits
-from ipk_tpu.tree import PhyloTree, postorder
-
 from .. import device as device_mod
+from ..alignment import Alignment
+from ..seq import DNA, SeqTraits
+from ..tree import PhyloTree, postorder
 from .native import _encode_leaves, empirical_frequencies
 
 __all__ = ["gamma_rates", "tree_loglikelihood_fn", "optimize_parameters",

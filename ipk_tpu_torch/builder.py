@@ -37,20 +37,20 @@ from typing import Dict, Iterator, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ipk_tpu import serialize
-from ipk_tpu.ar.mapping import gather_ghost_tensor, ghost_groups
-from ipk_tpu.core.filter import RandomFilterStream, score_threshold
-from ipk_tpu.db import PhyloKmerDB
-from ipk_tpu.seq import SeqTraits
-from ipk_tpu.tree import PhyloTree, to_newick
-
 from . import device as device_mod
+from . import serialize
+from .ar.mapping import gather_ghost_tensor, ghost_groups
 from .core import dense
 from .core import sparse as sparse_mod
+from .core.filter import RandomFilterStream, score_threshold
 from .core.kernels import combine_max, combine_max_with_positions
+from .db import PhyloKmerDB
 from .host import (BuildResult, _extract_batch, _extract_compact,
                    _extract_from_lists, _merge_on_disk, _prefetch, _Progress,
                    _sort_batch, log_threshold_f32, pick_key_batches)
+from .seq import SeqTraits
+from .tree import PhyloTree, to_newick
+from .utils.malloc_tune import retain_heap
 
 __all__ = ["build", "stage1_inputs", "stage1_state", "choose_key_batches",
            "Stage1Inputs", "BuildResult", "MAX_DENSE_KEYSPACE"]
@@ -319,7 +319,6 @@ def build(original_tree: PhyloTree,
     With ``on_disk`` the sorted parts go through ``<working_dir>/hashmaps/``
     into ``output_filename``, and the returned database holds no arrays (as
     in ``ipk_tpu``: load the output to read it)."""
-    from ipk_tpu.utils.malloc_tune import retain_heap
     retain_heap()
     sigma = traits.alphabet_size
     if kmer_size > traits.max_kmer_length:

@@ -22,7 +22,7 @@ import sys
 import time
 from typing import List, Optional
 
-from ipk_tpu.ar.bridge import AMINO_MODELS, NUCL_MODELS
+from .ar.bridge import AMINO_MODELS, NUCL_MODELS
 
 ALL_MODELS = NUCL_MODELS + AMINO_MODELS
 KMER_FILTERS = ["mif0", "random"]
@@ -211,8 +211,8 @@ def _build(args, parser: argparse.ArgumentParser) -> int:
 
 def _place(args) -> int:
     import torch
-    from ipk_tpu import serialize
-    from ipk_tpu.alignment import read_fasta
+    from . import serialize
+    from .alignment import read_fasta
     from .device import resolve
     from .placement import place_queries, write_jplace
     dev = resolve(args.device)
@@ -237,21 +237,21 @@ def _place(args) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     parser = _build_parser()
     args = parser.parse_args(argv)
-    from ipk_tpu.utils.malloc_tune import retain_heap
+    from .utils.malloc_tune import retain_heap
     retain_heap()
     if args.command == "build":
         return _build(args, parser)
     if args.command == "diff":
-        from ipk_tpu.tools import diff_databases
+        from .tools import diff_databases
         ok = diff_databases(args.db1, args.db2, verbose=args.verbose,
                             eps=args.eps)
         return 0 if ok else 1
     if args.command == "diff-text":
-        from ipk_tpu.tools import diff_plain_text
+        from .tools import diff_plain_text
         return 0 if diff_plain_text(args.db1, args.db2, eps=args.eps) else 1
     if args.command == "place":
         return _place(args)
-    from ipk_tpu.tools import dump_database
+    from .tools import dump_database
     dump_database(args.database, sys.stdout)
     return 0
 

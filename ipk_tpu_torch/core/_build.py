@@ -119,6 +119,8 @@ def load() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_int, vp]
         lib.ipk_combine_max.restype = ctypes.c_int
+        lib.ipk_combine_max_uncounted.argtypes = lib.ipk_combine_max.argtypes
+        lib.ipk_combine_max_uncounted.restype = ctypes.c_int
         lib.ipk_combine_max_positions.argtypes = [
             vp, vp, ctypes.c_float, vp, vp, vp, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 __all__ = ["split_tree", "best_score_prefix", "masked_span_scores",
-           "masked_halves", "combine_max_ref",
+           "masked_halves", "combine_max_ref", "count_explored_sorted",
            "combine_max_with_positions_ref", "group_max",
            "group_max_with_positions", "compact_survivors",
            "bitmask_survivors"]
@@ -152,6 +152,40 @@ def combine_max_ref(L: torch.Tensor, R: torch.Tensor, eps: torch.Tensor,
         counts += (T > eps).sum(dim=(1, 2, 3))
     A = torch.where(A > eps, A, NEG_INF)
     return A, counts
+
+
+def count_explored_sorted(L: torch.Tensor, R: torch.Tensor,
+                          eps: torch.Tensor, *, side: str = "r"
+                          ) -> torch.Tensor:
+    """The explored count of :func:`combine_max_ref` by sorted search: the
+    counting rule of the ``combine_max`` kernel, in plain torch.
+
+    For a fixed a, ``fl(a + b)`` is non-decreasing in b (round-to-nearest
+    is monotone; the halves hold finite values and -inf), so the b with
+    ``fl(a + b) > eps`` are a suffix of the other half's values sorted
+    ascending. ``side`` names the half that is sorted, per window and padded
+    at the front with -inf to a power of two P; each value of the other half
+    binary-searches it with the exact predicate, and adds P minus the first
+    index that passes. Addition commutes exactly, so either side gives the
+    same count. Returns counts [G] int64, equal to ``combine_max_ref``'s.
+    """
+    if side not in ("l", "r"):
+        raise ValueError(f"side must be 'l' or 'r', got {side!r}")
+    S, O = (L, R) if side == "l" else (R, L)
+    G, W, ns = S.shape
+    eps = eps.to(torch.float32)
+    P = 1 << max(0, (ns - 1).bit_length())
+    srt = torch.sort(S, dim=2).values
+    srt = torch.cat([torch.full((G, W, P - ns), NEG_INF, dtype=S.dtype,
+                                device=S.device), srt], dim=2)
+    first = torch.zeros(O.shape, dtype=torch.int64, device=O.device)
+    step = P // 2
+    while step:
+        probe = torch.gather(srt, 2, first + (step - 1))
+        first += step * (~(probe + O > eps)).to(torch.int64)
+        step //= 2
+    passes = srt[:, :, P - 1:] + O > eps
+    return torch.where(passes, P - first, 0).sum(dim=(1, 2))
 
 
 def combine_max_with_positions_ref(L: torch.Tensor, R: torch.Tensor,

@@ -8,8 +8,8 @@ These are copies, verbatim in behaviour, of the numpy helpers of
 ``_sort_batch``, ``_apply_range_gather``, ``_range_gather``, and the
 ``--on-disk`` merge ``_MergeBuffer`` and ``_merge_on_disk``). They are
 copied because that module imports jax at the top, and the port runs where
-jax is not installed. One shared jax-free module for both packages is
-ROADMAP.md's follow-up.
+jax is not installed. They stay copies while ``ipk_tpu`` is the frozen
+reference.
 """
 
 from __future__ import annotations
@@ -24,12 +24,12 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-from ipk_tpu import serialize
-from ipk_tpu.core.filter import (RandomFilterStream, _load_native,
-                                 mif0_filter_values_entries, score_threshold)
-from ipk_tpu.db import PhyloKmerDB
-from ipk_tpu.seq import SeqTraits, dense_index_to_key
-from ipk_tpu.utils.threads import host_threads
+from . import serialize
+from .core.filter import (RandomFilterStream, _load_native,
+                          mif0_filter_values_entries, score_threshold)
+from .db import PhyloKmerDB
+from .seq import SeqTraits, dense_index_to_key
+from .utils.threads import host_threads
 
 __all__ = ["log_threshold_f32", "pick_key_batches", "BuildResult"]
 

@@ -9,7 +9,7 @@ same artifacts:
 * ``<workdir>/AR/ar_tree_rerooted.newick`` when AR unroots a rooted input
 
 AR runs as a raxml-ng subprocess or is replayed from ``--ar-dir``, through
-``ipk_tpu.ar.bridge``, or, with ``--ar native`` and no ``--ar-dir``, on the
+``ar.bridge``, or, with ``--ar native`` and no ``--ar-dir``, on the
 build's device (``ipk_tpu_torch.ar.native``, optionally after the ML fit of
 ``--ar-optimize``), which writes raxml-ng's artifacts under
 ``<workdir>/AR/``.
@@ -23,15 +23,15 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 
-from ipk_tpu import alignment as aln
-from ipk_tpu import tree as tr
-from ipk_tpu.ar import bridge
-from ipk_tpu.ar.mapping import map_nodes
-from ipk_tpu.ar.reader import read_ancestral_probs
-from ipk_tpu.seq import SeqTraits, get_traits
-from ipk_tpu.tree import PhyloTree
-
+from . import alignment as aln
+from . import tree as tr
+from .ar import bridge
+from .ar.mapping import map_nodes
+from .ar.reader import read_ancestral_probs
 from .builder import BuildResult, build
+from .seq import SeqTraits, get_traits
+from .tree import PhyloTree
+from .utils.threads import set_host_threads
 
 __all__ = ["BuildParams", "BuildInputs", "build_database", "prepare",
            "get_traits"]
@@ -92,7 +92,6 @@ class BuildInputs(NamedTuple):
 def prepare(p: BuildParams) -> Optional[BuildInputs]:
     """Run the stages before the build (alignment, tree extension, AR) and
     write their artifacts; None when ``p.ar_only`` stops after AR."""
-    from ipk_tpu.utils.threads import set_host_threads
     if p.profile_dir:
         raise NotImplementedError(
             "--profile is not ported yet: its torch.profiler replacement is "
@@ -164,7 +163,7 @@ def prepare(p: BuildParams) -> Optional[BuildInputs]:
 def _external_ar(p: BuildParams, ar_threads: int, ext_tree_file: str,
                  phylip_path: str):
     """AR by a raxml-ng subprocess or an ``--ar-dir`` replay, through
-    ``ipk_tpu.ar.bridge``: (probs file, AR tree file)."""
+    ``ar.bridge``: (probs file, AR tree file)."""
     ar_params = bridge.ArParameters(
         binary_file=p.ar_binary, ar_dir=p.ar_dir,
         ar_parameters=p.ar_parameters, model=p.model, alpha=p.alpha,

@@ -12,29 +12,103 @@ nothing). Window keys map to rows on the host (a dense lookup table where
 chunks, and ships only the top ``top`` columns back. This is not a kernel
 in ``ipk_tpu`` either (a jitted gather and sum), so plain torch is the port.
 
-The host scorer (``PlacementIndex`` and the "host" engine of
-``place_queries``) and ``write_jplace`` are ``ipk_tpu.placement``'s, which
-imports no jax.
+The host scorer (:class:`PlacementIndex` and the "host" engine of
+:func:`place_queries`), ``_rank`` and :func:`write_jplace` are copies of
+``ipk_tpu/placement.py``'s, unchanged but for their imports.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
 
-from ipk_tpu.db import PhyloKmerDB
-from ipk_tpu.placement import PlacementIndex
-from ipk_tpu.placement import place_queries as _place_queries_host
-from ipk_tpu.placement import write_jplace
-
 from . import device as device_mod
+from .core.filter import score_threshold
+from .db import PhyloKmerDB
+from .seq import get_traits
 
-__all__ = ["TorchPlacementIndex", "place_queries", "write_jplace"]
+__all__ = ["PlacementIndex", "TorchPlacementIndex", "place_queries",
+           "write_jplace"]
 
 #: the largest key space that gets a dense key -> row lookup table
 _ROW_LUT_SPACE = 1 << 26
+
+
+class PlacementIndex:
+    """Key-sorted view of a DB for vectorized batch lookups."""
+
+    def __init__(self, db: PhyloKmerDB):
+        self.db = db
+        traits = get_traits(db.sequence_type)
+        self.traits = traits
+        self.k = db.kmer_size
+        order = np.argsort(db.keys, kind="stable")
+        self.sorted_keys = db.keys[order]
+        # entries flattened in key-sorted order
+        counts = np.diff(db.offsets)[order]
+        self.entry_offsets = np.zeros(len(order) + 1, dtype=np.int64)
+        np.cumsum(counts, out=self.entry_offsets[1:])
+        gather = np.concatenate(
+            [np.arange(db.offsets[i], db.offsets[i + 1]) for i in order]
+        ) if len(order) else np.zeros(0, np.int64)
+        self.entry_branches = db.branches[gather]
+        self.entry_scores = db.scores[gather].astype(np.float64)
+        # branch id -> dense column
+        self.branch_ids = np.unique(db.branches)
+        self.branch_col = {int(b): i for i, b in enumerate(self.branch_ids)}
+        self._col_lut = np.zeros(int(self.branch_ids.max()) + 1
+                                 if len(self.branch_ids) else 1,
+                                 dtype=np.int64)
+        self._col_lut[self.branch_ids] = np.arange(len(self.branch_ids))
+        self._entry_cols = self._col_lut[self.entry_branches]
+        self.log_threshold = np.log10(
+            score_threshold(db.omega, traits.alphabet_size, db.kmer_size))
+
+    def query_kmers(self, sequence: str) -> np.ndarray:
+        """Packed keys of all clean k-length windows of the query."""
+        lut = self.traits.codes_lut()
+        codes = lut[np.frombuffer(sequence.encode("ascii"), np.uint8)]
+        k = self.k
+        if len(codes) < k:
+            return np.zeros(0, dtype=np.uint64)
+        win = np.lib.stride_tricks.sliding_window_view(codes, k)
+        clean = (win >= 0).all(axis=1)
+        win = win[clean].astype(np.uint64)
+        bits = np.uint64(self.traits.bits_per_symbol)
+        keys = np.zeros(len(win), dtype=np.uint64)
+        for i in range(k):
+            keys = (keys << bits) | win[:, i]
+        return keys
+
+    def score_query(self, sequence: str) -> Tuple[np.ndarray, np.ndarray, int]:
+        """Per-branch total log10 score for one query.
+
+        Returns (branch_ids, scores, num_query_kmers). Branches never seen in
+        the DB keep the all-absent baseline.
+        """
+        keys = self.query_kmers(sequence)
+        n_branch = len(self.branch_ids)
+        total = np.full(n_branch, self.log_threshold * len(keys),
+                        dtype=np.float64)
+        if len(keys) == 0:
+            return self.branch_ids, total, 0
+        pos = np.searchsorted(self.sorted_keys, keys)
+        pos = np.clip(pos, 0, len(self.sorted_keys) - 1)
+        hit_pos = pos[self.sorted_keys[pos] == keys]
+        if len(hit_pos):
+            # expand [lo, hi) entry ranges of all hits without a Python loop
+            lo = self.entry_offsets[hit_pos]
+            lens = self.entry_offsets[hit_pos + 1] - lo
+            starts = np.repeat(lo, lens)
+            offs = (np.arange(lens.sum())
+                    - np.repeat(np.cumsum(lens) - lens, lens))
+            flat = starts + offs
+            np.add.at(total, self._entry_cols[flat],
+                      self.entry_scores[flat] - self.log_threshold)
+        return self.branch_ids, total, len(keys)
 
 
 class TorchPlacementIndex:
@@ -172,6 +246,17 @@ class TorchPlacementIndex:
         return h.branch_ids[cols], scores, valid_pad.sum(axis=1)
 
 
+def _rank(name: str, branch_ids: np.ndarray, totals: np.ndarray,
+          top: int) -> Dict:
+    order = np.argsort(-totals.astype(np.float64), kind="stable")[:top]
+    sel = totals[order].astype(np.float64)
+    weights = np.power(10.0, sel - sel.max())
+    weights /= weights.sum()
+    return {"p": [[int(branch_ids[i]), float(totals[i]), float(w)]
+                  for i, w in zip(order, weights)],
+            "n": [name]}
+
+
 def place_queries(db: PhyloKmerDB, queries: Iterable[Tuple[str, str]],
                   top: int = 7, engine: str = "auto",
                   batch_size: int = 4096,
@@ -187,7 +272,15 @@ def place_queries(db: PhyloKmerDB, queries: Iterable[Tuple[str, str]],
     if engine == "auto":
         engine = "device" if len(queries) >= 64 else "host"
     if engine == "host":
-        return _place_queries_host(db, queries, top=top, engine="host")
+        index = PlacementIndex(db)
+        placements = []
+        for name, seq in queries:
+            branch_ids, totals, _ = index.score_query(seq)
+            if len(branch_ids) == 0:
+                continue
+            placements.append(_rank(name, branch_ids,
+                                    totals.astype(np.float32), top))
+        return placements
     if engine != "device":
         raise ValueError(f"unknown placement engine {engine!r}: use auto, "
                          "host or device")
@@ -208,3 +301,31 @@ def place_queries(db: PhyloKmerDB, queries: Iterable[Tuple[str, str]],
                        for b, s, w in zip(ids[qi], scores[qi], weights)],
                  "n": [name]})
     return placements
+
+
+def write_jplace(db: PhyloKmerDB, placements: List[Dict], path: str) -> None:
+    """jplace v3 container; edge numbers are original-tree postorder ids,
+    annotated into the tree string as {N}."""
+    from .tree import PhyloNode, parse_newick
+
+    tree = parse_newick(db.tree)
+
+    def annotate(node: PhyloNode) -> str:
+        if node.children:
+            inner = ",".join(annotate(c) for c in node.children)
+            body = f"({inner}){node.label}"
+        else:
+            body = node.label
+        if node.parent is not None:
+            return f"{body}:{node.branch_length}{{{node.postorder_id}}}"
+        return body
+
+    doc = {
+        "version": 3,
+        "tree": annotate(tree.root) + ";",
+        "placements": placements,
+        "fields": ["edge_num", "likelihood", "like_weight_ratio"],
+        "metadata": {"software": "ipk-tpu"},
+    }
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)

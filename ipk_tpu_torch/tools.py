@@ -1,0 +1,233 @@
+"""Database verification tools: diff and dump.
+
+The port's own copy of ``ipk_tpu/tools.py``: only its imports differ,
+so numerics, ordering, formats and messages stay those of the reference.
+
+Counterparts of ``tools/src/diff.cpp`` and ``tools/src/dump.cpp``. The key
+fix over the reference (flagged in SURVEY.md §2.1/§4): ``diff_databases``
+actually reports failure — the reference's ``ipkdiff`` discards its result and
+always exits 0 (``diff.cpp:115-116``), making its CI equality check log-only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import TextIO
+
+import numpy as np
+
+from . import serialize
+from .seq import get_traits, decode_kmer
+from .tree import parse_newick
+
+__all__ = ["diff_databases", "dump_database"]
+
+
+def _report(name: str, match: bool, a, b) -> bool:
+    status = "OK" if match else "DIFF"
+    print(f"{name}:\t{status}\t{a}\t{b}")
+    return match
+
+
+def diff_databases(file1: str, file2: str, verbose: bool = False,
+                   eps: float = 0.0) -> bool:
+    """Field checks + bidirectional per-(kmer, branch) score comparison
+    (``diff.cpp:24-295``), with exact comparison by default (stricter than the
+    reference's EPS=1e-2, per BASELINE.md). Uncompressed inputs are
+    memory-mapped: columns page in on demand."""
+    a = serialize.load(file1, mmap=True)
+    b = serialize.load(file2, mmap=True)
+
+    ok = True
+    ok &= _report("Sequence type", a.sequence_type == b.sequence_type,
+                  a.sequence_type, b.sequence_type)
+    ok &= _report("Protocol version", a.version == b.version,
+                  a.version, b.version)
+    ok &= _report("k-mer size", a.kmer_size == b.kmer_size,
+                  a.kmer_size, b.kmer_size)
+    ok &= _report("Omega", np.float32(a.omega) == np.float32(b.omega),
+                  a.omega, b.omega)
+
+    def log_eps(db):
+        sigma = get_traits(db.sequence_type).alphabet_size
+        return math.log10((db.omega / sigma) ** db.kmer_size)
+    _report("Threshold", True, f"{log_eps(a):.6f}", f"{log_eps(b):.6f}")
+
+    ok &= _report("Reference tree", a.tree == b.tree, " ", " ")
+    ok &= _report("Tree index", a.tree_index == b.tree_index,
+                  len(a.tree_index), len(b.tree_index))
+    ok &= _report("Number of k-mers", a.size() == b.size(), a.size(), b.size())
+    ok &= _report("Number of phylo-k-mers", a.num_entries() == b.num_entries(),
+                  a.num_entries(), b.num_entries())
+
+    diffs = _score_diffs(a, b, eps)
+    ok &= _report("Phylo-k-mer scores", not diffs, len(diffs), "")
+    if verbose and diffs:
+        print("\t\tcode\tk-mer\tbranch\tA score\tB score")
+        traits = get_traits(a.sequence_type)
+        for key, br, sa, sb in diffs:
+            print(f"\t\t{key}\t{decode_kmer(key, a.kmer_size, traits)}\t{br}\t"
+                  f"{10 ** sa if not math.isnan(sa) else '-'}\t"
+                  f"{10 ** sb if not math.isnan(sb) else '-'}")
+    return bool(ok)
+
+
+def _score_diffs(a, b, eps: float):
+    """Vectorized per-(kmer, branch) comparison: expand each DB to parallel
+    (key, branch, score) streams sorted by (key, branch), then merge-compare.
+    No python dict-of-dicts walk (O(E) small objects, which falls over
+    first on large DBs)."""
+    def stream(db):
+        counts = np.diff(db.offsets)
+        rk = np.repeat(np.asarray(db.keys, dtype=np.uint64), counts)
+        br = np.asarray(db.branches)
+        sc = np.asarray(db.scores, dtype=np.float32)
+        order = np.lexsort((br, rk))
+        return rk[order], br[order], sc[order]
+
+    ka, ba, sa = stream(a)
+    kb, bb, sb = stream(b)
+    # composite (key, branch) match via searchsorted on structured arrays
+    da = np.empty(len(ka), dtype=[("k", "<u8"), ("b", "<u4")])
+    da["k"], da["b"] = ka, ba
+    db_ = np.empty(len(kb), dtype=[("k", "<u8"), ("b", "<u4")])
+    db_["k"], db_["b"] = kb, bb
+    ia = np.searchsorted(db_, da)
+    ia_c = np.minimum(ia, len(db_) - 1) if len(db_) else np.zeros(0, int)
+    a_in_b = (len(db_) > 0) & (ia < len(db_))
+    a_in_b = a_in_b & (db_[ia_c] == da) if len(db_) else np.zeros(len(da), bool)
+    ib = np.searchsorted(da, db_)
+    ib_c = np.minimum(ib, len(da) - 1) if len(da) else np.zeros(0, int)
+    b_in_a = (len(da) > 0) & (ib < len(da))
+    b_in_a = b_in_a & (da[ib_c] == db_) if len(da) else np.zeros(len(db_), bool)
+
+    diffs = []
+    for i in np.flatnonzero(~a_in_b):
+        diffs.append((int(ka[i]), int(ba[i]), float(sa[i]), float("nan")))
+    for j in np.flatnonzero(~b_in_a):
+        diffs.append((int(kb[j]), int(bb[j]), float("nan"), float(sb[j])))
+    both = np.flatnonzero(a_in_b)
+    if len(both):
+        sb_m = sb[ia[both]]
+        bad = ~(np.abs(sa[both].astype(np.float64)
+                       - sb_m.astype(np.float64)) <= eps)
+        for i, s2 in zip(both[bad], sb_m[bad]):
+            diffs.append((int(ka[i]), int(ba[i]), float(sa[i]), float(s2)))
+    return diffs
+
+
+def diff_plain_text(file1: str, file2: str, eps: float = 1e-3,
+                    verbose: bool = True) -> bool:
+    """Tolerant linear-space comparison, the ``diff-plain-text.py`` analog:
+    scores are compared as 10^log_score with tolerance ``eps``, and any score
+    within ``eps`` of the detection threshold ``(omega/sigma)^k`` is ignored —
+    boundary k-mers legitimately differ under float noise
+    (``diff-plain-text.py:36-46,83-86``; threshold derived from the DB header
+    instead of hardcoded)."""
+    a = serialize.load(file1, mmap=True)
+    b = serialize.load(file2, mmap=True)
+    sigma = get_traits(a.sequence_type).alphabet_size
+    threshold = (a.omega / sigma) ** a.kmer_size
+
+    # same vectorized (key, branch) merge-compare as _score_diffs, in
+    # linear space — no per-entry Python objects
+    def stream(db):
+        counts = np.diff(db.offsets)
+        rk = np.repeat(np.asarray(db.keys, dtype=np.uint64), counts)
+        br = np.asarray(db.branches)
+        sc = 10.0 ** np.asarray(db.scores, dtype=np.float64)
+        order = np.lexsort((br, rk))
+        s = np.empty(len(rk), dtype=[("k", "<u8"), ("b", "<u4")])
+        s["k"], s["b"] = rk[order], br[order]
+        return s, sc[order]
+
+    da, sa = stream(a)
+    db_, sb = stream(b)
+    ia = np.searchsorted(db_, da)
+    a_in_b = (ia < len(db_))
+    a_in_b[a_in_b] = db_[ia[a_in_b]] == da[a_in_b]
+    ib = np.searchsorted(da, db_)
+    b_in_a = (ib < len(da))
+    b_in_a[b_in_a] = da[ib[b_in_a]] == db_[b_in_a]
+
+    near_thr_a = np.abs(sa - threshold) < eps
+    near_thr_b = np.abs(sb - threshold) < eps
+    diffs = []
+    # present only in A: a real diff unless the score sits on the boundary
+    for i in np.flatnonzero(~a_in_b & ~near_thr_a):
+        diffs.append((int(da["k"][i]), int(da["b"][i]), float(sa[i]), None))
+    for j in np.flatnonzero(~b_in_a & ~near_thr_b):
+        diffs.append((int(db_["k"][j]), int(db_["b"][j]), None, float(sb[j])))
+    both = np.flatnonzero(a_in_b)
+    if len(both):
+        s2 = sb[ia[both]]
+        bad = (~near_thr_a[both]
+               & ~(np.abs(s2 - threshold) < eps)
+               & ~(np.abs(sa[both] - s2) < eps))
+        for i, v2 in zip(both[np.flatnonzero(bad)], s2[bad]):
+            diffs.append((int(da["k"][i]), int(da["b"][i]),
+                          float(sa[i]), float(v2)))
+    if diffs:
+        if verbose:
+            traits = get_traits(a.sequence_type)
+            for key, branch, s1, s2 in sorted(diffs):
+                print(f"{decode_kmer(key, a.kmer_size, traits)}\t{branch}\t"
+                      f"{s1}\t{s2}")
+        return False
+    if verbose:
+        print("OK")
+    return True
+
+
+def dump_database(filename: str, out: TextIO) -> None:
+    """Reference ipkdump format (``dump.cpp:18-33``): the k-mer decoded to
+    text, then per entry "\\t<10^score>\\t<node preorder id>" resolved through
+    the DB-embedded newick tree.
+
+    Uncompressed databases stream through a :class:`serialize.BatchLoader`
+    in bounded blocks (resident memory independent of DB size — the lazy
+    cursor contract of ``i2l::batch_loader``); compressed ones load fully.
+    """
+    try:
+        loader = serialize.BatchLoader(filename)
+    except RuntimeError:
+        loader = None                       # compressed: full load
+    if loader is None:
+        db = serialize.load(filename)
+        tree = parse_newick(db.tree)
+        traits = get_traits(db.sequence_type)
+        _dump_rows(out, tree, traits, db.kmer_size, db.keys,
+                   np.diff(db.offsets), db.branches, db.scores)
+        return
+    tree = parse_newick(loader.tree)
+    traits = get_traits(loader.sequence_type)
+    try:
+        while (block := loader.read_block()) is not None:
+            keys, _, counts, branches, scores, _ = block
+            _dump_rows(out, tree, traits, loader.kmer_size, keys, counts,
+                       branches, scores)
+    finally:
+        loader.close()
+
+
+def _dump_rows(out: TextIO, tree, traits, kmer_size, keys, counts, branches,
+               scores) -> None:
+    """Streaming per-row formatter (a few µs/key at 500k keys; the
+    postorder→preorder node resolution is a precomputed lookup array and
+    the linear scores a single vectorized pow). An np.char-vectorized
+    line builder was measured 2.3× SLOWER — numpy string ufuncs lose to
+    CPython f-strings — so the plain write loop stays."""
+    branches = np.asarray(branches)
+    lut_size = int(branches.max()) + 1 if len(branches) else 1
+    lut = np.full(lut_size, -1, dtype=np.int64)
+    for node in tree.nodes_postorder():
+        if 0 <= node.postorder_id < lut_size:
+            lut[node.postorder_id] = node.preorder_id
+    pre = lut[branches].tolist()
+    lin = np.power(10.0, np.asarray(scores, dtype=np.float64)).tolist()
+    e = 0
+    for row, key in enumerate(keys):
+        out.write(decode_kmer(int(key), kmer_size, traits) + "\n")
+        for _ in range(int(counts[row])):
+            out.write(f"\t{lin[e]:g}\t{pre[e]}\n")
+            e += 1

@@ -300,16 +300,19 @@ def test_cuda_requested_without_card_raises():
 def test_port_runs_without_jax_or_click(tmp_path):
     """The port's CLI, pipeline, placement and native AR import, and build
     on the dense (k=4) and the sparse (k=12) path, with positions, on disk
-    and from the native AR with its ML fit, with neither jax nor click (nor
-    optax) loaded."""
+    and from the native AR with its ML fit, then place (host and device
+    engines, jplace), diff and dump, with neither jax nor click (nor optax)
+    loaded and ipk_tpu blocked from import."""
     tree_file, fasta_file, ar_dir = make_project(tmp_path, num_leaves=4,
                                                  width=20, seed=4)
     script = (
-        "import sys\n"
+        "import io, sys\n"
+        "sys.modules['ipk_tpu'] = None\n"
         "import ipk_tpu_torch.cli, ipk_tpu_torch.pipeline as pl\n"
-        "import ipk_tpu_torch.placement\n"
+        "import ipk_tpu_torch.placement as place\n"
         "import ipk_tpu_torch.ar.native, ipk_tpu_torch.ar.optimize\n"
-        "from ipk_tpu import serialize\n"
+        "from ipk_tpu_torch import serialize, tools\n"
+        "from ipk_tpu_torch.alignment import read_fasta\n"
         "runs = [dict(kmer_size=4, omega=1.5), dict(kmer_size=12, omega=2.0),"
         " dict(kmer_size=4, omega=1.5, keep_positions=True),"
         " dict(kmer_size=12, omega=2.0, on_disk=True),"
@@ -324,8 +327,21 @@ def test_port_runs_without_jax_or_click(tmp_path):
         "    assert serialize.load(out).size() > 0, kw\n"
         "    if n == 1:\n"
         "        assert r.stats['final_caps'], 'k=12 took the dense path'\n"
+        f"db0 = {str(tmp_path)!r} + '/DB0.ipk'\n"
+        "db = serialize.load(db0)\n"
+        f"queries = list(read_fasta({fasta_file!r}))\n"
+        "for engine in ('host', 'device'):\n"
+        "    placed = place.place_queries(db, queries, top=3, engine=engine,"
+        " device='cpu')\n"
+        "    assert [p['n'] for p in placed] == [[q[0]] for q in queries]\n"
+        f"place.write_jplace(db, placed, {str(tmp_path)!r} + '/q.jplace')\n"
+        "assert tools.diff_databases(db0, db0, verbose=False)\n"
+        "buf = io.StringIO()\n"
+        "tools.dump_database(db0, buf)\n"
+        "assert buf.getvalue()\n"
         "for mod in ('jax', 'click', 'optax'):\n"
         "    assert mod not in sys.modules, mod + ' imported'\n"
+        "assert not [m for m in sys.modules if m.startswith('ipk_tpu.')]\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
                        env=subprocess_env(), capture_output=True, text=True,
@@ -424,6 +440,7 @@ def test_merge_on_disk_orders_by_stored_filter_value(tmp_path):
     order is not the in-RAM (float64) order. Byte-equal to ipk_tpu's."""
     from ipk_tpu import serialize
     from ipk_tpu.db import PhyloKmerDB
+    from ipk_tpu_torch.db import PhyloKmerDB as TorchPhyloKmerDB
     from ipk_tpu_torch.host import _merge_on_disk
     base = np.float32(0.25)
     step = np.float64(np.spacing(base)) / 8     # below float32 resolution
@@ -443,10 +460,11 @@ def test_merge_on_disk_orders_by_stored_filter_value(tmp_path):
         files.append(str(tmp_path / f"{n}.ipk"))
         serialize.save(db, files[-1], compressed=False)
     outs = []
-    for name, merge in (("torch", _merge_on_disk),
-                        ("jax", jax_builder._merge_on_disk)):
+    for name, merge, db_cls in (
+            ("torch", _merge_on_disk, TorchPhyloKmerDB),
+            ("jax", jax_builder._merge_on_disk, PhyloKmerDB)):
         outs.append(str(tmp_path / f"merged_{name}.ipk"))
-        merge(PhyloKmerDB(2, 1.5, "nucl", "(a,b)r;", []), files, outs[-1],
+        merge(db_cls(2, 1.5, "nucl", "(a,b)r;", []), files, outs[-1],
               uncompressed=False, block_rows=2)
     assert payload(outs[0]) == payload(outs[1])
     merged = serialize.load(outs[0])

@@ -83,6 +83,113 @@ def test_kernel_matches_plain_on_card(cuda_device, G, W, nl, nr):
     assert torch.equal(counts, counts_ref)
 
 
+def count_inputs(kind, G, W, nl, nr, sigma, seed):
+    """Halves whose values are sums of sigma-ary log10 scores (few distinct
+    values: many ties), with -inf rows, ±0.0, sums tied at eps, or eps
+    above, below or at 0."""
+    rng = np.random.default_rng(seed)
+    grid = np.log10(rng.dirichlet(np.ones(sigma) * 0.5, size=3).ravel()
+                    ).astype(np.float32)
+    L = rng.choice(grid, size=(G, W, nl)).astype(np.float32)
+    R = rng.choice(grid, size=(G, W, nr)).astype(np.float32)
+    L[rng.random(L.shape) < 0.3] = -np.inf
+    eps = np.float32(np.median(L[np.isfinite(L)]) + np.median(R))
+    if kind == "neg_inf_rows":
+        L[:, ::3] = -np.inf
+        R[:, 1::4] = -np.inf
+    elif kind == "signed_zeros":
+        L[rng.random(L.shape) < 0.3] = -0.0
+        L[rng.random(L.shape) < 0.2] = 0.0
+        R[rng.random(R.shape) < 0.3] = -0.0
+        R[rng.random(R.shape) < 0.2] = 0.0
+        eps = np.float32(-0.25)
+    elif kind == "ties_at_eps":
+        eps = np.float32(L.flat[np.flatnonzero(np.isfinite(L))[0]]
+                         + R.flat[0])
+    elif kind == "eps_above_zero":
+        L, R, eps = -L, -R, np.float32(0.25)
+        L[np.isnan(L) | np.isposinf(L)] = -np.inf
+    elif kind == "eps_below_zero":
+        eps = np.float32(-0.5)
+    elif kind == "eps_zero":
+        L, R, eps = L + np.float32(0.75), R, np.float32(0.0)
+    return (torch.from_numpy(np.ascontiguousarray(L)),
+            torch.from_numpy(np.ascontiguousarray(R)), torch.tensor(eps))
+
+
+@pytest.mark.parametrize("side", ["l", "r"])
+@pytest.mark.parametrize("kind,G,W,nl,nr,sigma", [
+    ("random", 2, 13, 16, 64, 4), ("random", 1, 9, 20, 400, 20),
+    ("random", 3, 7, 33, 65, 4), ("random", 2, 5, 1, 3, 20),
+    ("neg_inf_rows", 2, 12, 16, 64, 4), ("signed_zeros", 2, 11, 16, 64, 4),
+    ("signed_zeros", 1, 6, 20, 400, 20), ("ties_at_eps", 2, 9, 16, 64, 4),
+    ("eps_above_zero", 2, 8, 16, 64, 4), ("eps_below_zero", 2, 8, 20, 400, 20),
+    ("eps_zero", 2, 8, 16, 64, 4), ("random", 1, 3, 64, 4096, 4),
+    ("random", 1, 2, 400, 8000, 20)])
+def test_sorted_search_count_equals_plain(kind, G, W, nl, nr, sigma, side):
+    """The kernel's counting rule (sorted search, either half sorted) gives
+    combine_max_ref's counts exactly."""
+    L, R, eps = count_inputs(kind, G, W, nl, nr, sigma, seed=nl + nr + W)
+    _, counts = dense.combine_max_ref(L, R, eps)
+    got = dense.count_explored_sorted(L, R, eps, side=side)
+    assert torch.equal(got, counts)
+    if kind == "ties_at_eps":
+        T = L[:, :, :, None] + R[:, :, None, :]
+        assert bool((T == eps).any())      # a sum sits exactly at eps
+    if kind == "signed_zeros":
+        assert int(counts.sum()) > 0
+
+
+def card_inputs(kind, G, W, nl, nr, device):
+    """Random halves with 20% -inf in L, every value live, or 90% -inf (the
+    short lists of a real build's masked halves)."""
+    L, R, eps = halves(11 + nl + nr, G, W, nl, nr)
+    if kind == "dense":
+        L = torch.from_numpy(np.random.default_rng(nl).normal(
+            size=(G, W, nl)).astype(np.float32))
+    elif kind == "sparse":
+        rng = np.random.default_rng(nr)
+        L[torch.from_numpy(rng.random(L.shape) < 0.9)] = float("-inf")
+        R[torch.from_numpy(rng.random(R.shape) < 0.9)] = float("-inf")
+        eps = torch.tensor(np.float32(-1.0))
+    return L.to(device), R.to(device), eps.to(device)
+
+
+#: ragged tiles (nl, nr and W multiples of no tile, W not a multiple of 32),
+#: 16-byte and 4-byte staging, the widest dense shapes (nr = 4096: DNA k=11;
+#: nr = 8000: AA k=5)
+CARD_SHAPES = [("random", 2, 45, 65, 129), ("dense", 1, 33, 64, 256),
+               ("sparse", 2, 70, 100, 300), ("dense", 1, 31, 3, 5),
+               ("random", 1, 19, 256, 4096), ("sparse", 1, 12, 1024, 4096),
+               ("random", 1, 9, 400, 8000), ("dense", 1, 5, 20, 8000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,G,W,nl,nr", CARD_SHAPES)
+def test_kernel_bit_equal_at_redesign_shapes(cuda_device, kind, G, W, nl,
+                                             nr):
+    L, R, eps = card_inputs(kind, G, W, nl, nr, cuda_device)
+    A, counts = kernels.combine_max(L, R, eps)
+    torch.cuda.synchronize()
+    A_ref, counts_ref = dense.combine_max_ref(L, R, eps)
+    assert torch.equal(A.view(torch.int32), A_ref.view(torch.int32))
+    assert torch.equal(counts, counts_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,G,W,nl,nr", CARD_SHAPES)
+def test_positions_bit_equal_at_redesign_shapes(cuda_device, kind, G, W, nl,
+                                                nr):
+    L, R, eps = card_inputs(kind, G, W, nl, nr, cuda_device)
+    A, pos, counts = kernels.combine_max_with_positions(L, R, eps)
+    torch.cuda.synchronize()
+    A_ref, pos_ref, counts_ref = dense.combine_max_with_positions_ref(
+        L, R, eps)
+    assert torch.equal(A.view(torch.int32), A_ref.view(torch.int32))
+    assert torch.equal(pos, pos_ref)
+    assert torch.equal(counts, counts_ref)
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_non_contiguous(cuda_device):
     L, R, eps = halves(4, nl=16, device=cuda_device)

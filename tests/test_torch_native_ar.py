@@ -26,6 +26,10 @@ from ipk_tpu.pipeline import build_database as jax_build_database
 from ipk_tpu.seq import AA, DNA
 from ipk_tpu.tools import diff_plain_text
 from ipk_tpu.tree import extend_tree, parse_newick
+from ipk_tpu.tree import to_newick
+from ipk_tpu_torch import alignment as talignment
+from ipk_tpu_torch import seq as tseq
+from ipk_tpu_torch import tree as ttree
 from ipk_tpu_torch.ar import native as tnative
 from ipk_tpu_torch.ar import optimize as topt
 from ipk_tpu_torch.pipeline import BuildParams, build_database
@@ -36,6 +40,24 @@ torch.set_num_threads(2)
 
 TREE4 = "((a:0.3,b:0.8)x:0.4,(c:0.2,d:1.1)y:0.6)r;"
 ALIGN4 = Alignment(["a", "b", "c", "d"], ["ACGTA", "ACGTC", "AGTTA", "A-GTA"])
+
+
+def port(obj):
+    """The port's own object for an ipk_tpu tree, alignment or alphabet,
+    made from its newick text, its sequences or its name (the two packages
+    share no classes)."""
+    if hasattr(obj, "root"):
+        return ttree.parse_newick(to_newick(obj))
+    if hasattr(obj, "sequences"):
+        return talignment.Alignment(obj.headers, obj.sequences)
+    return tseq.get_traits(obj.name)
+
+
+def port_extended(tree, align):
+    """The port's extended tree and alignment, made by its own
+    extend_tree / extend_alignment from the same newick and sequences."""
+    ext, _ = ttree.extend_tree(port(tree))
+    return ext, talignment.extend_alignment(port(align), ext)
 
 
 def aa_case():
@@ -56,7 +78,8 @@ def test_ancestral_posteriors_match(states, categories):
     nodes_j, posts_j = jnative.ancestral_posteriors(
         tree, align, traits, alpha=0.7, categories=categories)
     nodes_t, posts_t = tnative.ancestral_posteriors(
-        tree, align, traits, alpha=0.7, categories=categories, device="cpu")
+        port(tree), port(align), port(traits), alpha=0.7,
+        categories=categories, device="cpu")
     assert [n.label for n in nodes_t] == [n.label for n in nodes_j]
     assert posts_t.dtype == np.float32
     np.testing.assert_allclose(posts_t, posts_j, rtol=0, atol=1e-5)
@@ -65,7 +88,7 @@ def test_ancestral_posteriors_match(states, categories):
 def test_copied_host_helpers_match():
     freqs = jnative.empirical_frequencies(ALIGN4, DNA)
     np.testing.assert_array_equal(
-        tnative.empirical_frequencies(ALIGN4, DNA), freqs)
+        tnative.empirical_frequencies(port(ALIGN4), port(DNA)), freqs)
     for a, b in zip(tnative.gtr_eigendecomposition(freqs),
                     jnative.gtr_eigendecomposition(freqs)):
         np.testing.assert_array_equal(a, b)
@@ -84,11 +107,14 @@ def test_run_native_ar_artifacts(tmp_path, traits):
         tree, align = aa_case()
     ext, _ = extend_tree(tree)
     ext_align = extend_alignment(align, ext)
+    text, text_align = port_extended(tree, align)
     out = {}
-    for tag, run, extra in [("jax", jnative.run_native_ar, {}),
-                            ("torch", tnative.run_native_ar,
-                             {"device": "cpu"})]:
-        probs, tree_path = run(ext, ext_align, str(tmp_path / tag), traits,
+    for tag, run, args, extra in [
+            ("jax", jnative.run_native_ar, (ext, ext_align), {}),
+            ("torch", tnative.run_native_ar, (text, text_align),
+             {"device": "cpu"})]:
+        probs, tree_path = run(*args, str(tmp_path / tag),
+                               traits if tag == "jax" else port(traits),
                                **extra)
         assert os.path.basename(probs) == "native.raxml.ancestralProbs"
         out[tag] = (read_ancestral_probs(probs, traits),
@@ -153,8 +179,8 @@ def test_loglikelihood_value_and_gradient(categories):
         want = float(ll_j(*args))
         gwant = [np.asarray(g) for g in
                  jax.grad(ll_j, argnums=(0, 1, 2))(*args)]
-    ll_t, _ = topt.tree_loglikelihood_fn(tree, ALIGN4, DNA, categories,
-                                         device="cpu")
+    ll_t, _ = topt.tree_loglikelihood_fn(port(tree), port(ALIGN4),
+                                         port(DNA), categories, device="cpu")
     targs = [torch.tensor(x, dtype=torch.float64, requires_grad=True)
              for x in (bl, rates, 0.8)]
     got = ll_t(*targs, freqs)
@@ -172,7 +198,8 @@ def test_ten_adam_steps_match_optax():
                        "ACTTACGAATC", "ACTTACCAATG"])
     kw = dict(steps=10, learning_rate=0.05, verbosity=0)
     want = jopt.optimize_parameters(tree, align, DNA, **kw)
-    got = topt.optimize_parameters(tree, align, DNA, device="cpu", **kw)
+    got = topt.optimize_parameters(port(tree), port(align), port(DNA),
+                                   device="cpu", **kw)
     assert got.steps == want.steps == 10
     np.testing.assert_allclose(got.branch_lengths, want.branch_lengths,
                                rtol=1e-6)
@@ -192,10 +219,10 @@ def test_optimized_native_ar_artifacts(tmp_path):
     tree = parse_newick("((a:0.3,b:0.8)x:0.4,c:0.5)r;")
     ext, _ = extend_tree(tree)
     align = Alignment(["a", "b", "c"], ["ACGTAC", "ACGTAA", "TCGTAC"])
-    ext_align = extend_alignment(align, ext)
+    text, text_align = port_extended(tree, align)
     probs, tree_path = tnative.run_native_ar(
-        ext, ext_align, str(tmp_path), DNA, optimize=True, opt_steps=8,
-        verbosity=0, device="cpu")
+        text, text_align, str(tmp_path), port(DNA), optimize=True,
+        opt_steps=8, verbosity=0, device="cpu")
     _, P = read_ancestral_probs(probs, DNA)
     np.testing.assert_allclose(np.power(10.0, P.astype(np.float64)).sum(2),
                                1.0, atol=1e-5)

@@ -22,6 +22,8 @@ from ipk_tpu.db import PhyloKmerDB
 from ipk_tpu.pipeline import BuildParams, build_database
 from ipk_tpu.placement import TpuPlacementIndex
 from ipk_tpu.placement import place_queries as jax_place_queries
+from ipk_tpu_torch import db as tdb
+from ipk_tpu_torch import serialize as tserialize
 from ipk_tpu_torch.placement import TorchPlacementIndex, place_queries
 
 from fixtures import make_project
@@ -31,6 +33,16 @@ from test_placement_fidelity import (make_db, make_queries,
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def port_db(db):
+    """The port's PhyloKmerDB holding an ipk_tpu database's arrays (the
+    two packages share no classes)."""
+    out = tdb.PhyloKmerDB(db.kmer_size, db.omega, db.sequence_type, db.tree,
+                          db.tree_index)
+    out.set_data(db.keys, db.filter_values, db.offsets, db.branches,
+                 db.scores, db.positions)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -52,7 +64,7 @@ def test_torch_index_matches_tpu_index(built_db):
     seqs = [s for _, s in read_fasta(fasta)]
     seqs += ["ACGNACGTAC", "ACG"]   # an ambiguity; shorter than k
     ids_j, tot_j, cnt_j = TpuPlacementIndex(db).place_batch(seqs)
-    index = TorchPlacementIndex(db, device="cpu")
+    index = TorchPlacementIndex(tserialize.load(out), device="cpu")
     ids_t, tot_t, cnt_t = index.place_batch(seqs, device_batch=3)
     np.testing.assert_array_equal(ids_t, ids_j)
     np.testing.assert_array_equal(cnt_t, cnt_j)
@@ -68,8 +80,8 @@ def test_torch_index_matches_published_formula():
     rng = np.random.default_rng(11)
     db = make_db(rng)
     queries = make_queries(rng, db)
-    ids, totals, _ = TorchPlacementIndex(db, device="cpu").place_batch(
-        queries)
+    ids, totals, _ = TorchPlacementIndex(port_db(db),
+                                         device="cpu").place_batch(queries)
     top1 = 0
     for qi, seq in enumerate(queries):
         ref = naive_published_score(db, seq)
@@ -91,8 +103,8 @@ def test_topk_exact_tie_takes_lower_column():
     db = PhyloKmerDB(k, 1.5, "nucl", "(a,b)r;", [])
     db.set_data(keys, np.zeros(3, np.float32), offsets, branches, scores)
     queries = ["AAA", "ACC", "AGC", "AAAAC", "TTT"]
-    ids_t, sc_t, _ = TorchPlacementIndex(db, device="cpu").place_batch_topk(
-        queries, top=4)
+    ids_t, sc_t, _ = TorchPlacementIndex(
+        port_db(db), device="cpu").place_batch_topk(queries, top=4)
     ids_j, sc_j, _ = TpuPlacementIndex(db).place_batch_topk(queries, top=4)
     np.testing.assert_array_equal(ids_t, ids_j)
     np.testing.assert_array_equal(sc_t, sc_j)
@@ -110,7 +122,7 @@ def test_place_queries_matches_ipk_tpu(built_db, n_queries):
     base = list(read_fasta(fasta))
     queries = [(f"q{i}", base[i % len(base)][1][i % 7:])
                for i in range(n_queries)]
-    got = place_queries(db, queries, top=3, device="cpu")
+    got = place_queries(tserialize.load(out), queries, top=3, device="cpu")
     want = jax_place_queries(db, queries, top=3)
     assert len(got) == len(want) == n_queries
     for a, b in zip(got, want):
