@@ -23,11 +23,18 @@ nvidia-smi. Imports nothing of JAX. Every phase raises on failure:
              * staircase_select against staircase_select_ref at the shapes
                of tests/test_staircase_kernels.py with sort_l on and off,
                sign-bit codes with ±0.0 and tied scores, an overflowing
-               window, CL = CR = 4096 (cap 4096) and 8192 (cap 8192); then
-               the first 32-ghost chunk of the phase-7 build through
-               sparse.enumerate_sparse_many with the kernel and with
-               use_kernel=False, bit-equal lists and overflow, and each of
-               its kernel launches again against the plain version.
+               window, the kernel's paths (compact prefixes and -inf in
+               place with 10-30% live, live counts of 0, 1, 32, 33, 256
+               and 257 a list, sort_l off with dead rows interleaved),
+               CL = CR = 4096 (cap 4096), 8192 (cap 8192) and 12,000 (cap
+               16,384: global staging); then the first 32-ghost chunk of
+               the phase-7 build through sparse.enumerate_sparse_many with
+               the kernel and with use_kernel=False, bit-equal lists and
+               overflow, each of its kernel launches again against the
+               plain version with a "[main path]" line (time, bound,
+               card), and 4 ghosts with the top span's cap forced above
+               8192 under a ceiling of 16,384, kernel route against
+               use_kernel=False.
 4. goldens — tests/data/golden D-dna (k=7) and D-aa (k=4) built on the card,
              payload-equal to the committed databases; a small amino build
              payload-equal between the card and the CPU.
@@ -120,17 +127,34 @@ KERNELS = ("combine_max", "combine_max_with_positions", "staircase_select")
 #: memory bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-#: phase-3 staircase shapes: (label, G, W, CL, CR, cap, input options)
+#: phase-3 staircase shapes: (label, G, W, CL, CR, cap, input options);
+#: "both" runs sort_l on and off, "live" gives each window exactly that many
+#: live (> -inf) entries a list (cycled over the windows, R one step ahead of
+#: L) or a share of its width drawn from the range, kept as a compact
+#: prefix ("prefix") or scattered among -inf
 STAIRCASE_SHAPES = [
-    ("tiny, unaligned", 1, 5, 20, 33, 128, {}),
-    ("multi-tile L", 2, 9, 130, 200, 256, {}),
-    ("wide L, narrow R", 1, 3, 300, 40, 384, {}),
+    ("tiny, unaligned", 1, 5, 20, 33, 128, {"both": True}),
+    ("multi-tile L", 2, 9, 130, 200, 256, {"both": True}),
+    ("wide L, narrow R", 1, 3, 300, 40, 384, {"both": True}),
     ("sign-bit codes, +-0.0 and ties", 2, 4, 64, 64, 200,
      {"signed_zeros": True, "sign_bit": True}),
     ("overflow (all survive)", 1, 4, 40, 40, 128, {"all_survive": True}),
+    ("compact prefixes, 10-30% live", 4, 250, 512, 384, 1280,
+     {"live": (0.1, 0.3), "prefix": True}),
+    ("-inf in place, 10-30% live", 4, 250, 64, 64, 512,
+     {"live": (0.1, 0.3), "both": True}),
+    ("live 0/1/32/33/256/257 a list, in place", 2, 24, 320, 300, 1001,
+     {"live": (0, 1, 32, 33, 256, 257), "both": True}),
+    ("live 0/1/32/33/256/257 a list, prefixes", 2, 24, 320, 300, 1001,
+     {"live": (0, 1, 32, 33, 256, 257), "prefix": True}),
     ("CL = CR = 4096", 1, 64, 4096, 4096, 4096, {}),
     ("CL = CR = 8192", 1, 16, 8192, 8192, 8192, {}),
+    ("CL = CR = 12,000 (global staging)", 1, 2, 12_000, 12_000, 16_384, {}),
 ]
+#: the phase-3 forced-caps chunk: the top span's cap above 8192 under a
+#: ceiling of 16384 (its natural size with (0,6) = (6,6) = 128)
+WIDE_CAPS = dict(ghosts=4, cap=16_384,
+                 caps={(0, 6): 128, (6, 6): 128, (0, 12): 9216})
 
 
 def log(msg: str) -> None:
@@ -314,6 +338,19 @@ def combine_bound(G, W, nl, nr, positions=False):
     return bound(bytes_moved + 8 * G, 2 * G * W * nl * nr)
 
 
+def staircase_bound(args, outs, emitted):
+    """(bytes, bound ms, bound_by) of one staircase_select call: every score
+    and eps read once, and the code of each live (> -inf) entry (a dead
+    entry never counts or emits, so its code is never needed); every slot
+    and total written once; one add a survivor emitted."""
+    sL, cL, sR, cR, eps = args
+    live = int((sL > float("-inf")).sum()) + int((sR > float("-inf")).sum())
+    moved = (sum(t.numel() * t.element_size() for t in (sL, sR, eps))
+             + live * cL.element_size()
+             + sum(t.numel() * t.element_size() for t in outs))
+    return (moved, *bound(moved, emitted))
+
+
 def uncounted_ms(torch, L, R, eps, reps):
     """The main-path kernel without its explored count (the library's
     measuring entry, not a wrapper: no launch is counted)."""
@@ -446,16 +483,28 @@ def phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir, smi):
 
 
 def staircase_inputs(torch, G, W, CL, CR, seed, signed_zeros=False,
-                     sign_bit=False, all_survive=False):
+                     sign_bit=False, all_survive=False, live=None,
+                     prefix=False):
     """Seeded survivor lists on the card: rounded (tied) scores, pruned
-    -inf entries, optionally ±0.0 scores, codes with bit 31 set, or a
-    threshold every pair passes."""
+    -inf entries, optionally ±0.0 scores, codes with bit 31 set, a
+    threshold every pair passes, or set live counts (see
+    STAIRCASE_SHAPES)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     sL = np.round(rng.uniform(-3, 0, (G, W, CL)), 1).astype(np.float32)
     sR = np.round(rng.uniform(-3, 0, (G, W, CR)), 1).astype(np.float32)
-    sL[rng.random(sL.shape) < 0.1] = -np.inf
-    sR[rng.random(sR.shape) < 0.1] = -np.inf
+    if live is None:
+        sL[rng.random(sL.shape) < 0.1] = -np.inf
+        sR[rng.random(sR.shape) < 0.1] = -np.inf
+    else:
+        for side, (s, C) in enumerate(((sL, CL), (sR, CR))):
+            if isinstance(live[0], int):
+                n = np.resize(np.roll(live, -side), G * W).reshape(G, W)
+            else:
+                n = (rng.uniform(*live, (G, W)) * C).astype(np.int64)
+            rank = (np.arange(C) if prefix else
+                    np.argsort(np.argsort(rng.random((G, W, C)), -1), -1))
+            s[rank >= n[..., None]] = -np.inf
     if signed_zeros:
         sL[..., ::5] = -0.0
         sR[..., 1::4] = -0.0
@@ -494,12 +543,8 @@ def compare_staircase(torch, label, args, cap, sort_l, reps=5, plain_reps=2):
     plain_ms = time_ms(torch, lambda: sparse.staircase_select_ref(
         *args, cap=cap, sort_l=sort_l), plain_reps)
     G, W, CL = args[0].shape
-    # inputs read once, every slot and total written once; one add a
-    # survivor written
-    bytes_moved = (sum(t.numel() * t.element_size() for t in args)
-                   + sum(t.numel() * t.element_size() for t in got))
-    bound_ms, bound_by = bound(bytes_moved,
-                               int(ref[3].clamp(max=cap).sum()))
+    _, bound_ms, bound_by = staircase_bound(
+        args, got, int(ref[3].clamp(max=cap).sum()))
     log(f"[kernel] staircase {label}: G={G} W={W} CL={CL} "
         f"CR={args[2].shape[2]} cap={cap} sort_l={sort_l} bit-equal "
         f"({int(ref[3].sum())} survivors, max total {int(ref[3].max())}); "
@@ -509,40 +554,39 @@ def compare_staircase(torch, label, args, cap, sort_l, reps=5, plain_reps=2):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir, tmp):
-    import numpy as np
+def sparse_stage1(tmp, tree_file, fasta_file, ar_dir):
+    """(stage-1 inputs, traits) of the phase-7 build, the scale project at
+    SPARSE_SCALE's k and omega, derived as the builder derives them."""
     from ipk_tpu_torch.builder import stage1_inputs
-    from ipk_tpu_torch.core import kernels, sparse
     from ipk_tpu_torch.pipeline import BuildParams, prepare
-    errs = []
-    for n, (label, G, W, CL, CR, cap, opts) in enumerate(STAIRCASE_SHAPES):
-        args = staircase_inputs(torch, G, W, CL, CR, seed=n, **opts)
-        for sort_l in ((True, False) if n < 3 else (True,)):
-            errs.append(compare_staircase(
-                torch, label, args, cap, sort_l,
-                plain_reps=1 if CL >= 4096 else 2)["max_abs_err"])
-        if opts.get("all_survive"):
-            tot = kernels.staircase_select(*args, cap=cap)[3]
-            if not bool((tot == CL * CR).all()):
-                raise RuntimeError("[kernel] staircase overflow: totals are "
-                                   "not the true survivor count")
-        del args
-
-    # the first chunk of the phase-7 build, cut as the builder cuts it
-    k, omega, cap = SPARSE_SCALE["k"], SPARSE_SCALE["omega"], \
-        SPARSE_SCALE["cap"]
+    k, omega = SPARSE_SCALE["k"], SPARSE_SCALE["omega"]
     inp = prepare(BuildParams(
         refalign=fasta_file, reftree=tree_file, ar_dir=ar_dir,
         working_dir=os.path.join(tmp, "wd_kernel_sparse"), kmer_size=k,
         omega=omega, verbosity=0, device="cuda"))
-    traits = inp.traits
     s1 = stage1_inputs(inp.original_tree, inp.extended_tree,
                        inp.ghost_mapping, inp.ar_mapping, inp.label_rows,
-                       inp.P, sigma=traits.alphabet_size, kmer_size=k,
+                       inp.P, sigma=inp.traits.alphabet_size, kmer_size=k,
                        omega=omega)
-    caps = sparse.probe_caps(s1.P_all, s1.prefix_all, s1.eps, k=k,
-                             sigma=traits.alphabet_size, cap=cap)
-    g1 = max(1, 32 // s1.ghosts_per_group) * s1.ghosts_per_group
+    return s1, inp.traits
+
+
+def staircase_chunk(s1_traits, ghosts=32, cap=None, caps=None):
+    """One chunk of the phase-7 build: the first whole ghost groups holding
+    at least ``ghosts`` ghosts (32 by default, the chunk of builder.build)
+    through sparse.enumerate_sparse_many with the kernel, recording every
+    staircase_select call's inputs. caps None takes the probe's plan under
+    the ceiling ``cap`` (SPARSE_SCALE's by default), as the build does.
+    Returns (ghost rows, enumerate_sparse_many's keyword arguments,
+    [(args, kwargs)] of each launch, its result, its stats)."""
+    from ipk_tpu_torch.core import kernels, sparse
+    s1, traits = s1_traits
+    k = SPARSE_SCALE["k"]
+    cap = cap or SPARSE_SCALE["cap"]
+    if caps is None:
+        caps = sparse.probe_caps(s1.P_all, s1.prefix_all, s1.eps, k=k,
+                                 sigma=traits.alphabet_size, cap=cap)
+    g1 = max(1, ghosts // s1.ghosts_per_group) * s1.ghosts_per_group
     chunk = dict(k=k, sigma=traits.alphabet_size,
                  bits=traits.bits_per_symbol, cap=cap, caps=caps,
                  device="cuda")
@@ -558,11 +602,20 @@ def phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir, tmp):
     recording.launches = 0
     kernels.staircase_select = recording
     try:
-        st_k = {}
-        out_k = sparse.enumerate_sparse_many(
-            s1.P_all[:g1], s1.prefix_all[:g1], s1.eps, stats=st_k, **chunk)
+        stats = {}
+        out = sparse.enumerate_sparse_many(
+            s1.P_all[:g1], s1.prefix_all[:g1], s1.eps, stats=stats, **chunk)
     finally:
         kernels.staircase_select = select
+    return g1, chunk, recorded, out, stats
+
+
+def chunk_vs_plain(s1, g1, chunk, out_k, st_k, n_launches, label):
+    """Raise unless enumerate_sparse_many's kernel route (out_k, st_k) and
+    its use_kernel=False route agree on the first g1 ghost rows (codes,
+    score bits, overflow) and the kernel ran; log both."""
+    import numpy as np
+    from ipk_tpu_torch.core import sparse
     st_p = {}
     out_p = sparse.enumerate_sparse_many(
         s1.P_all[:g1], s1.prefix_all[:g1], s1.eps, use_kernel=False,
@@ -571,26 +624,75 @@ def phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir, tmp):
             and np.array_equal(out_k[1].view(np.uint32),
                                out_p[1].view(np.uint32))
             and np.array_equal(out_k[2], out_p[2]))
-    if not same or not recorded:
+    if not same or not n_launches:
         raise RuntimeError(
-            f"[kernel] staircase on the first {g1}-ghost chunk of the DNA "
-            f"k={k} build: kernel route and use_kernel=False differ, or the "
-            f"kernel never ran ({len(recorded)} launches)")
-    live = int(np.isfinite(out_k[1]).sum())
-    log(f"[kernel] staircase, first {g1}-ghost chunk of the DNA k={k} "
-        f"omega={omega} scale project (W={out_k[1].shape[1]}, caps "
+            f"[kernel] staircase on {label}: kernel route and "
+            f"use_kernel=False differ, or the kernel never ran ({n_launches} "
+            f"launches)")
+    log(f"[kernel] staircase, {label} (W={out_k[1].shape[1]}, caps "
         f"{sparse._caps_key(st_k['final_caps'])}): enumerate_sparse_many "
         f"bit-equal with the kernel and with use_kernel=False (codes, "
-        f"scores, overflow; {live} survivors, "
+        f"scores, overflow; {int(np.isfinite(out_k[1]).sum())} survivors, "
         f"{st_k.get('redispatches', 0)} re-dispatches); device_compute "
         f"kernel route {st_k['device_compute']:.6f} s, plain route "
         f"{st_p['device_compute']:.6f} s")
+
+
+def phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir, tmp, smi):
+    from ipk_tpu_torch.core import kernels, sparse
+    errs = []
+    for n, (label, G, W, CL, CR, cap, opts) in enumerate(STAIRCASE_SHAPES):
+        opts = dict(opts)
+        orders = (True, False) if opts.pop("both", False) else (True,)
+        args = staircase_inputs(torch, G, W, CL, CR, seed=n, **opts)
+        for sort_l in orders:
+            errs.append(compare_staircase(
+                torch, label, args, cap, sort_l,
+                plain_reps=1 if CL >= 4096 else 2)["max_abs_err"])
+        if opts.get("all_survive"):
+            tot = kernels.staircase_select(*args, cap=cap)[3]
+            if not bool((tot == CL * CR).all()):
+                raise RuntimeError("[kernel] staircase overflow: totals are "
+                                   "not the true survivor count")
+        del args
+
+    # the first chunk of the phase-7 build, cut as the builder cuts it
+    k, omega = SPARSE_SCALE["k"], SPARSE_SCALE["omega"]
+    s1_traits = sparse_stage1(tmp, tree_file, fasta_file, ar_dir)
+    s1, traits = s1_traits
+    g1, chunk, recorded, out_k, st_k = staircase_chunk(s1_traits)
+    chunk_vs_plain(s1, g1, chunk, out_k, st_k, len(recorded),
+                   f"first {g1}-ghost chunk of the DNA k={k} omega={omega} "
+                   f"scale project")
     runs = []
     for n, (args, kw) in enumerate(recorded):
-        label = (f"chunk launch {n + 1}/{len(recorded)}")
-        runs.append(compare_staircase(torch, label, args, kw["cap"],
-                                      kw["sort_l"], reps=5, plain_reps=1))
-    del recorded
+        label = f"chunk launch {n + 1}/{len(recorded)}"
+        run = compare_staircase(torch, label, args, kw["cap"], kw["sort_l"],
+                                reps=5, plain_reps=1)
+        runs.append(run)
+        log(f"[main path] staircase_select, {label} of the DNA k={k} scale "
+            f"build: L {tuple(args[0].shape)} x R {tuple(args[2].shape)}, "
+            f"cap {kw['cap']}, sort_l {kw['sort_l']}: kernel "
+            f"{run['ms']:.4f} ms (CUDA events, mean of 5 after a warm-up); "
+            f"bound {run['bound_ms']:.4f} ms ({run['bound_by']}), kernel at "
+            f"{100 * run['bound_ms'] / run['ms']:.1f}% of it; {smi}")
+    del recorded, out_k
+
+    # a few ghosts with the top span's cap above 8192
+    caps = sparse.normalize_caps(WIDE_CAPS["caps"], k, traits.alphabet_size,
+                                 WIDE_CAPS["cap"])
+    g_w, chunk_w, rec_w, out_w, st_w = staircase_chunk(
+        s1_traits, ghosts=WIDE_CAPS["ghosts"], cap=WIDE_CAPS["cap"],
+        caps=caps)
+    top = max(kw["cap"] for _, kw in rec_w)
+    if top <= 8192:
+        raise RuntimeError(f"[kernel] staircase forced caps: no launch "
+                           f"above 8192 (widest cap {top})")
+    chunk_vs_plain(s1, g_w, chunk_w, out_w, st_w, len(rec_w),
+                   f"first {g_w} ghosts with the top cap forced above 8192 "
+                   f"under a ceiling of {WIDE_CAPS['cap']} (widest launch "
+                   f"cap {top})")
+    del rec_w, out_w
     torch.cuda.empty_cache()
     res = dict(max_abs_err=max(errs + [r["max_abs_err"] for r in runs]),
                ms=sum(r["ms"] for r in runs) / len(runs),
@@ -1388,7 +1490,7 @@ def main() -> int:
         log(f"[setup] scale project written in {time.monotonic() - t0:.1f} s")
         kres = phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir, smi)
         sres = phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir,
-                                      tmp)
+                                      tmp, smi)
         walls = {}
         counts = {}
 

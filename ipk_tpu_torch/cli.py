@@ -126,8 +126,7 @@ def _build_parser() -> argparse.ArgumentParser:
     b.add_argument("--on-disk", action="store_true")
     b.add_argument("--max-candidates", type=int, default=4096,
                    help="Per-window survivor-list capacity on the large-k "
-                        "(sparse) path, at most 8192; the build fails loudly "
-                        "if exceeded.")
+                        "(sparse) path; the build fails loudly if exceeded.")
     b.add_argument("--profile", dest="profile_dir", default="")
     b.add_argument("--device-mi", action="store_true")
     b.add_argument("--coordinator", default="")

@@ -128,9 +128,14 @@ def load() -> ctypes.CDLL:
         lib.ipk_combine_max_positions.restype = ctypes.c_int
         ll = ctypes.c_longlong
         lib.ipk_staircase_select.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, ctypes.c_int,
-            ctypes.c_int, vp]
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, ll,
+            ctypes.c_int, ctypes.c_int, vp]
         lib.ipk_staircase_select.restype = ctypes.c_int
+        lib.ipk_staircase_select_stages.argtypes = (
+            lib.ipk_staircase_select.argtypes + [ctypes.c_int])
+        lib.ipk_staircase_select_stages.restype = ctypes.c_int
+        lib.ipk_staircase_scratch_bytes.argtypes = [ll, ll, ll, ctypes.c_int]
+        lib.ipk_staircase_scratch_bytes.restype = ll
         lib.ipk_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ipk_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

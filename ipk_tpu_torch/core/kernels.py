@@ -19,8 +19,7 @@ import torch
 from . import _build
 from .dense import combine_max_ref, combine_max_with_positions_ref
 
-__all__ = ["combine_max", "combine_max_with_positions", "staircase_select",
-           "STAIRCASE_MAX_WIDTH"]
+__all__ = ["combine_max", "combine_max_with_positions", "staircase_select"]
 
 
 def _check_eps(eps: torch.Tensor) -> float:
@@ -123,11 +122,6 @@ def combine_max_with_positions(L: torch.Tensor, R: torch.Tensor,
 
 combine_max_with_positions.launches = 0
 
-#: the kernel's widest list and cap (its shared-memory staging holds both
-#: lists padded to a power of two plus the row offsets: 160 KB at 8192)
-STAIRCASE_MAX_WIDTH = 8192
-
-
 def staircase_select(sL: torch.Tensor, cL: torch.Tensor, sR: torch.Tensor,
                      cR: torch.Tensor, eps: torch.Tensor, *, cap: int,
                      sort_l: bool = True
@@ -144,10 +138,12 @@ def staircase_select(sL: torch.Tensor, cL: torch.Tensor, sR: torch.Tensor,
     sorted views (L sorted only with ``sort_l``), row-major; dead slots are
     (-inf, 0, 0); totals above ``cap`` mean the window overflowed.
 
-    CL, CR and cap may be at most :data:`STAIRCASE_MAX_WIDTH` on every
-    device, so a build fails alike on the CPU and on the card. CPU tensors
+    Lists and cap may be of any size with ``CL * CR < 2^31`` (totals and
+    row offsets are int32, as in ``ipk_tpu``), on every device. CPU tensors
     go to :func:`sparse.staircase_select_ref`; CUDA tensors to the kernel in
-    ``csrc/staircase_select.cu``.
+    ``csrc/staircase_select.cu``, into a scratch allocated here for the
+    windows a warp cannot hold (their queue, and the staging of those too
+    wide for shared memory).
     """
     if not (sL.dim() == 3 and cL.shape == sL.shape and sR.dim() == 3
             and cR.shape == sR.shape and sL.shape[:2] == sR.shape[:2]
@@ -169,11 +165,10 @@ def staircase_select(sL: torch.Tensor, cL: torch.Tensor, sR: torch.Tensor,
     if CL < 1 or CR < 1 or cap < 1:
         raise ValueError(f"staircase_select: empty lists or cap (CL={CL}, "
                          f"CR={CR}, cap={cap})")
-    if max(CL, CR, cap) > STAIRCASE_MAX_WIDTH:
+    if CL * CR >= 1 << 31:
         raise ValueError(
-            f"staircase_select: lists of {CL} x {CR} with cap {cap} exceed "
-            f"the kernel's {STAIRCASE_MAX_WIDTH}; lower --max-candidates to "
-            f"{STAIRCASE_MAX_WIDTH} or less")
+            f"staircase_select: lists of {CL} x {CR} reach 2^31 pairs; "
+            f"totals and row offsets are int32")
     if sL.device.type == "cpu":
         from .sparse import staircase_select_ref
         return staircase_select_ref(sL, cL, sR, cR, eps, cap=cap,
@@ -190,10 +185,17 @@ def staircase_select(sL: torch.Tensor, cL: torch.Tensor, sR: torch.Tensor,
     if G * W == 0:
         return out_cl, out_cr, out_s, totals
     lib = _build.load()
+    nbytes = lib.ipk_staircase_scratch_bytes(G * W, CL, CR, dev.index)
+    if nbytes < 0:
+        raise RuntimeError("staircase_select: the device's shared-memory "
+                           "limit could not be read")
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ipk_staircase_select(
         *(ctypes.c_void_p(t.data_ptr()) for t in
           (sL, cL, sR, cR, eps, out_cl, out_cr, out_s, totals)),
+        ctypes.c_void_p(None if scratch is None else scratch.data_ptr()),
         G * W, CL, CR, cap, int(sort_l), dev.index, ctypes.c_void_p(stream))
     _raise_on_launch_error(lib, "staircase_select", rc)
     staircase_select.launches += 1

@@ -304,7 +304,7 @@ def test_staircase_cpu_tensor_takes_plain_version():
 
 @pytest.mark.parametrize("bad", ["sL_f64", "cL_i32", "cR_f32", "eps_f64",
                                  "eps_shape", "R_shape", "codes_shape",
-                                 "wide_cap", "wide_list", "empty_cap"])
+                                 "pairs_2_31", "empty_cap"])
 def test_staircase_rejects_bad_input(bad):
     sL, cL, sR, cR, eps = staircase_inputs(2)
     cap = 128
@@ -322,18 +322,32 @@ def test_staircase_rejects_bad_input(bad):
         sR, cR = sR[:, :-1], cR[:, :-1]
     elif bad == "codes_shape":
         cL = cL[:, :, :-1]
-    elif bad == "wide_cap":
-        cap = kernels.STAIRCASE_MAX_WIDTH + 1
-    elif bad == "wide_list":
-        width = kernels.STAIRCASE_MAX_WIDTH + 1
-        sL = torch.full((1, 1, width), -1.0)
-        cL = torch.zeros((1, 1, width), dtype=torch.int64)
-        sR, cR, eps = sR[:1, :1], cR[:1, :1], eps[:1, :1]
+    elif bad == "pairs_2_31":
+        # 46,341^2 >= 2^31: totals and row offsets would not fit int32
+        width = 46_341
+        sL = sR = torch.full((1, 1, width), -1.0)
+        cL = cR = torch.zeros((1, 1, width), dtype=torch.int64)
+        eps = eps[:1, :1]
     else:
         cap = 0
     with pytest.raises((TypeError, ValueError),
-                       match="max-candidates" if "wide" in bad else None):
+                       match="2\\^31" if bad == "pairs_2_31" else None):
         kernels.staircase_select(sL, cL, sR, cR, eps, cap=cap)
+
+
+@pytest.mark.parametrize("CL,CR,cap", [(100, 100, 8320), (8200, 16, 256)],
+                         ids=["wide_cap", "wide_list"])
+def test_staircase_accepts_wide_shapes(CL, CR, cap):
+    """Caps and lists above 8192, which the wrapper once refused, go to the
+    plain version on the CPU (tests/test_torch_sparse.py holds them to
+    ipk_tpu's route for such shapes and to a brute force)."""
+    args = staircase_inputs(CL + cap, 1, 2, CL, CR)
+    before = kernels.staircase_select.launches
+    got = kernels.staircase_select(*args, cap=cap)
+    assert kernels.staircase_select.launches == before
+    for a, b in zip(got, sparse.staircase_select_ref(*args, cap=cap)):
+        assert torch.equal(a, b)
+    assert got[2].shape[2] == cap and int(got[3].min()) > 0
 
 
 @pytest.mark.cuda
@@ -371,3 +385,93 @@ def test_staircase_kernel_overflow_totals(cuda_device):
     _, _, s, tot = kernels.staircase_select(sL, cL, sR, cR, eps, cap=128)
     torch.cuda.synchronize()
     assert bool((tot == 1600).all()) and bool(torch.isfinite(s).all())
+
+
+def live_lists(seed, G, W, CL, CR, nL, nR, prefix, device):
+    """Survivor lists with exactly nL / nR live (> -inf) entries a window,
+    as a compact prefix (a staircase output) or scattered among -inf (a
+    complete product pruned in place); tied scores, unique codes."""
+    rng = np.random.default_rng(seed)
+
+    def side(C, n):
+        s = np.full((G, W, C), -np.inf, np.float32)
+        vals = np.round(rng.uniform(-3, 0, (G, W, n)), 1).astype(np.float32)
+        if prefix:
+            s[..., :n] = vals
+        else:
+            pos = np.argsort(rng.random((G, W, C)), axis=-1)[..., :n]
+            np.put_along_axis(s, pos, vals, axis=-1)
+        codes = rng.permutation(G * W * C).astype(np.int64).reshape(G, W, C)
+        return s, codes
+
+    sL, cL = side(CL, nL)
+    sR, cR = side(CR, nR)
+    eps = rng.uniform(-3.5, -2.5, (G, W)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (sL, cL, sR, cR, eps))
+
+
+def assert_staircase_equal(got, ref):
+    for name, a, b in zip(("cl", "cr", "scores", "totals"), got, ref):
+        if name == "scores":
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
+
+
+#: the kernel's paths by live entries a list: a warp sorts 1 (no sort), 32
+#: (one entry a lane), 33 (two), 256 (eight) in registers; 257 defers the
+#: window to the block pass, staged in shared memory; 0 emits only dead
+#: slots. 13 windows: a warp-pass block of 8 windows and a ragged one; cap
+#: 1001 leaves unaligned dead tails.
+LIVE_CASES = [(0, 0), (1, 1), (32, 32), (33, 33), (256, 256), (257, 257),
+              (32, 257), (257, 1), (5, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort_l", [True, False])
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "in_place"])
+@pytest.mark.parametrize("nL,nR", LIVE_CASES)
+def test_staircase_kernel_paths_on_card(cuda_device, nL, nR, prefix, sort_l):
+    args = live_lists(nL * 1000 + nR, 1, 13, 320, 300, nL, nR, prefix,
+                      cuda_device)
+    before = kernels.staircase_select.launches
+    got = kernels.staircase_select(*args, cap=1001, sort_l=sort_l)
+    torch.cuda.synchronize()
+    assert kernels.staircase_select.launches == before + 1
+    assert_staircase_equal(got, sparse.staircase_select_ref(
+        *args, cap=1001, sort_l=sort_l))
+
+
+@pytest.mark.cuda
+def test_staircase_kernel_deferred_queue_on_card(cuda_device):
+    """More deferred windows (every one of 1200, 270 live entries a list)
+    than the block pass has blocks, so its blocks stride over the queue."""
+    args = live_lists(6, 2, 600, 300, 300, 270, 270, True, cuda_device)
+    got = kernels.staircase_select(*args, cap=700)
+    torch.cuda.synchronize()
+    assert_staircase_equal(got, sparse.staircase_select_ref(*args, cap=700))
+
+
+@pytest.mark.cuda
+def test_staircase_kernel_oversize_on_card(cuda_device):
+    """Lists too wide for shared memory: the wide path's global scratch."""
+    args = staircase_inputs(12, 1, 1, 12_000, 12_000, device=cuda_device)
+    got = kernels.staircase_select(*args, cap=16_384)
+    torch.cuda.synchronize()
+    ref = sparse.staircase_select_ref(*args, cap=16_384)
+    assert_staircase_equal(got, ref)
+    assert int(ref[3].min()) > 16_384          # every slot filled
+
+
+@pytest.mark.cuda
+def test_staircase_kernel_all_dead_window(cuda_device):
+    sL, cL, sR, cR, eps = live_lists(3, 1, 3, 64, 64, 20, 20, False,
+                                     cuda_device)
+    sL[0, 1] = float("-inf")
+    got = kernels.staircase_select(sL, cL, sR, cR, eps, cap=130)
+    torch.cuda.synchronize()
+    assert int(got[3][0, 1]) == 0 and int(got[3][0, 0]) > 0
+    assert bool((got[0][0, 1] == 0).all() and (got[1][0, 1] == 0).all())
+    assert bool(torch.isneginf(got[2][0, 1]).all())
+    assert_staircase_equal(got, sparse.staircase_select_ref(
+        sL, cL, sR, cR, eps, cap=130))

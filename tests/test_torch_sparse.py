@@ -270,6 +270,31 @@ def test_staircase_ref_chunked_loops():
         tsparse._CHUNK_ELEMS = old
 
 
+@pytest.mark.parametrize("CL,CR,cap", [(100, 100, 8320), (8200, 16, 256)],
+                         ids=["wide_cap", "wide_list"])
+def test_staircase_wide_matches_ipk_tpu_xla(CL, CR, cap):
+    """A cap or a list above 8192: the wrapper (the plain version on the CPU)
+    returns the lists of the route ipk_tpu takes for such shapes,
+    ``_sort_desc`` + ``_staircase_xla``, and of the brute force."""
+    from ipk_tpu_torch.core import kernels
+    sL, cL, sR, cR, eps = staircase_case(1, 2, CL, CR, CL + cap)
+    out = kernels.staircase_select(
+        torch.from_numpy(sL), torch.from_numpy(cL.astype(np.int64)),
+        torch.from_numpy(sR), torch.from_numpy(cR.astype(np.int64)),
+        torch.from_numpy(eps), cap=cap)
+    got = tuple(t.numpy() for t in out)
+    got = (got[0].astype(np.uint32), got[1].astype(np.uint32)) + got[2:]
+    a_c, a_s = jsparse._sort_desc(jnp.asarray(cL), jnp.asarray(sL))
+    b_c, b_s = jsparse._sort_desc(jnp.asarray(cR), jnp.asarray(sR))
+    (ag, bg), s, tot = jsparse._staircase_xla(
+        a_c, a_s, b_c, b_s, jnp.asarray(eps), cap=cap, shift=None)
+    assert s.shape[2] == min(cap, CL * CR) == cap
+    assert_same(got, (ag, bg, s, tot))
+    assert_same(got, brute_force_sorted(sL, cL, sR, cR, eps, cap),
+                bits=False)
+    assert got[3].min() > 0
+
+
 # ---------------------------------------------------------------------------
 # the whole enumeration against ipk_tpu's XLA route
 # ---------------------------------------------------------------------------
@@ -360,3 +385,19 @@ def test_enumerate_sparse_single_ghost():
     for a, b in zip(got[:2], ref[:2]):
         np.testing.assert_array_equal(a, b)
     assert got[2] == ref[2]
+
+
+def test_enumerate_sparse_many_top_cap_above_8192():
+    """DNA k=12 with the top span's cap forced to 9216 under a ceiling of
+    16384 (its natural size with (0,6) = (6,6) = 128): bit-equal to
+    ipk_tpu, whose XLA route takes such caps."""
+    k, sigma, bits, cap = 12, 4, 2, 16384
+    P, prefix = make_inputs(np.random.default_rng(12), 2, k + 3, sigma)
+    caps = tsparse.normalize_caps({(0, 6): 128, (6, 6): 128, (0, 12): 9216},
+                                  k, sigma, cap)
+    assert caps == jsparse.normalize_caps(caps, k, sigma, cap)
+    _, s, o, stats = assert_enumeration_equal(
+        P, prefix, eps_for(2.0, sigma, k), k=k, sigma=sigma, bits=bits,
+        cap=cap, caps=caps)
+    assert stats["final_caps"][(0, 12)] > 8192 and s.shape[2] > 8192
+    assert np.isfinite(s).sum() > 0 and not o.any()
