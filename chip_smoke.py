@@ -84,6 +84,31 @@ nvidia-smi. Imports nothing of JAX. Every phase raises on failure:
              built from them on the card equal under ``diff-text --eps
              1e-3``), then --ar native --ar-optimize on the card (the log
              likelihood must rise; time and steps/s).
+12. profile — the phase-5 build with --profile: a torch.profiler Chrome
+             trace (its size, operators and kernels on the card) beside a
+             database payload-equal to phase 5's.
+13. multi-rank A — a torch.distributed world of one rank over NCCL, in
+             process, through ipk_tpu_torch.parallel directly (the builder
+             shards only above one rank): device_key_merge on the first
+             32-ghost chunk of the phase-7 build (enumerated through the
+             mesh) byte-equal to merge_window_lists plus the host lexsort;
+             sharded_batched_build_step at the phase-5 scale, each key
+             batch's A and counts bit-equal to the plain combine's and its
+             f32 filter values within rtol 2e-5 / atol 1e-7 of the host f64
+             mif0; pad_ghosts' rows through both kernels leave no survivor
+             and no NaN.
+14. multi-rank B — two ranks over gloo sharing the card, each a process of
+             this script (``--rank SPEC R``; NCCL refuses two ranks on one
+             GPU), build and each write: the phase-5 project (byte-equal
+             payload to phase 5's), the phase-7 64-taxon project forced
+             sparse through the device key merge (payload-equal to phase
+             7's one-rank build; the route must be "device"), the phase-5
+             project with --keep-positions (payload-equal to phase 8's) and
+             with --device-mi (phase 5's rows, filter values within rtol
+             2e-5 / atol 1e-7), and the 64-taxon project through the CLI
+             with --coordinator/--num-hosts 2/--host-id (byte-equal to phase
+             7's dense file). Two ranks on one card check correctness; they
+             measure no scaling.
 
 The synthetic projects are written by this script's own make_project,
 with ipk_tpu_torch's modules (the same files as the repository's test
@@ -91,10 +116,13 @@ fixtures write). Kernel launch counts are reset just before each main path
 and read just after it: phases 4-5 (the dense path: combine_max), 6-7
 (the sparse path: staircase_select), 8 (positions:
 combine_max_with_positions), 9 (on-disk: combine_max and
-staircase_select) and 11 (builds from native-AR posteriors: combine_max). Two lines before the last is a JSON object of
-the kernels (name, route, source, replaces, launches, max_abs_err, ms,
-plain_ms, bound_ms, bound_by, library_ms), then the card's name and power
-limit as nvidia-smi prints them; the last line is
+staircase_select), 11 (builds from native-AR posteriors: combine_max), 12
+(combine_max) and 13 (combine_max and staircase_select); each rank of
+phase 14 counts its own, printed on the "[multi-rank]" line with each
+phase's wall, the card's name and its power limit. Two lines before the
+last is a JSON object of the kernels (name, route, source, replaces,
+launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms), then
+the card's name and power limit as nvidia-smi prints them; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, when CUDA is unavailable or the
 repository is not beside this script.
@@ -472,7 +500,8 @@ def phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir, smi):
                bound_by=runs[0]["bound_by"],
                uncounted_ms=sum(r["uncounted_ms"] for r in runs)
                / key_batches,
-               tuples=sum(r["tuples"] for r in runs))
+               tuples=sum(r["tuples"] for r in runs),
+               s1=s1, total_num_groups=inp.original_tree.get_node_count())
     log(f"[kernel] DNA k=8 scale project: {key_batches} launches per build, "
         f"kernel {res['ms']:.4f} ms per launch, "
         f"{res['ms'] * key_batches:.4f} ms per build; plain "
@@ -698,7 +727,7 @@ def phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir, tmp, smi):
                ms=sum(r["ms"] for r in runs) / len(runs),
                plain_ms=sum(r["plain_ms"] for r in runs) / len(runs),
                bound_ms=sum(r["bound_ms"] for r in runs) / len(runs),
-               bound_by=runs[0]["bound_by"])
+               bound_by=runs[0]["bound_by"], s1_traits=s1_traits)
     log(f"[kernel] staircase on the chunk: {len(runs)} launches per chunk "
         f"run, kernel {res['ms']:.4f} ms per launch, "
         f"{res['ms'] * len(runs):.4f} ms per chunk; plain "
@@ -1459,6 +1488,399 @@ def phase_native_ar(torch, tmp, tree_file, fasta_file):
         f"({result.db.size()} k-mers)")
 
 
+def phase_profile(torch, tmp, tree_file, fasta_file, ar_dir):
+    """Phase 12: the phase-5 build under --profile: a Chrome trace beside a
+    database payload-equal to phase 5's."""
+    from ipk_tpu_torch.pipeline import BuildParams, build_database
+    out = os.path.join(tmp, "scale_profiled.ipk")
+    trace_dir = os.path.join(tmp, "profile")
+    t0 = time.monotonic()
+    build_database(BuildParams(
+        refalign=fasta_file, reftree=tree_file, kmer_size=SCALE["k"],
+        omega=SCALE["omega"], ar_dir=ar_dir, profile_dir=trace_dir,
+        working_dir=os.path.join(tmp, "wd_profile"), output_filename=out,
+        verbosity=0, device="cuda"))
+    wall = time.monotonic() - t0
+    if payload(out) != payload(os.path.join(tmp, "scale_1.ipk")):
+        raise RuntimeError("[profile] the profiled build differs from phase "
+                           "5's")
+    trace = os.path.join(trace_dir, "trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    on_card = [e for e in events if e.get("cat") == "kernel"]
+    if not ops:
+        raise RuntimeError("[profile] the trace holds no operator")
+    log(f"[profile] {SCALE['num_leaves']} taxa x {SCALE['width']} sites, DNA "
+        f"k={SCALE['k']} with --profile: payload-equal to phase 5's build; "
+        f"trace {os.path.getsize(trace)} B, {len(events)} events ("
+        f"{len(ops)} operators, {len(on_card)} kernels on the card, "
+        f"{sum(e.get('dur', 0) for e in on_card):.1f} us of them; "
+        f"combine_max among them: "
+        f"{any('combine_max' in e['name'] for e in on_card)}); build wall "
+        f"{wall:.3f} s")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def one_rank_key_merge(mesh, s1_traits):
+    """device_key_merge on the first 32-ghost chunk of the phase-7 build,
+    enumerated through the mesh, against the host merge (merge_window_lists
+    per group, then the lexsort by (key, group)), byte for byte."""
+    import numpy as np
+    from ipk_tpu_torch import device as device_mod
+    from ipk_tpu_torch.core import sparse
+    from ipk_tpu_torch.parallel import key_merge
+    s1, traits = s1_traits
+    k, cap = SPARSE_SCALE["k"], SPARSE_SCALE["cap"]
+    sigma, bits = traits.alphabet_size, traits.bits_per_symbol
+    gpg = s1.ghosts_per_group
+    g1 = max(1, 32 // gpg) * gpg
+    P, pre = s1.P_all[:g1], s1.prefix_all[:g1]
+    caps = sparse.probe_caps(s1.P_all, s1.prefix_all, s1.eps, k=k,
+                             sigma=sigma, cap=cap)
+    t0 = time.monotonic()
+    while True:
+        pend = sparse.enumerate_pairs_deferred(
+            P, pre, s1.eps, k=k, sigma=sigma, bits=bits, caps=caps,
+            mesh=mesh)
+        done, result, caps = sparse.resolve_overflow(
+            pend, k=k, sigma=sigma, cap=cap, caps=caps, mesh=mesh,
+            gather=False)
+        if done:
+            break
+    cl, cr, scores, overflow = result
+    if overflow.any():
+        raise RuntimeError("[multi-rank A] the chunk overflowed its caps")
+    device_mod.synchronize(mesh.device)
+    t_enum = time.monotonic() - t0
+    t0 = time.monotonic()
+    keys, group, merged = key_merge.device_key_merge(
+        mesh, cl, cr, scores, ghosts_per_group=gpg,
+        nl=1 << (bits * (k // 2)), bits=bits, k=k)
+    t_merge = time.monotonic() - t0
+    t0 = time.monotonic()
+    codes = sparse._pack_host(cl.cpu().numpy(), cr.cpu().numpy(), k=k,
+                              bits=bits)
+    s_h = scores.cpu().numpy()
+    parts = [sparse.merge_window_lists(codes[i:i + gpg], s_h[i:i + gpg])
+             for i in range(0, g1, gpg)]
+    h_keys = np.concatenate([c for c, _ in parts])
+    h_group = np.concatenate([np.full(len(c), g, np.int64)
+                              for g, (c, _) in enumerate(parts)])
+    h_scores = np.concatenate([s for _, s in parts])
+    order = np.lexsort((h_group, h_keys))
+    t_host = time.monotonic() - t0
+    same = [np.array_equal(keys, h_keys[order]),
+            np.array_equal(group, h_group[order]),
+            merged.tobytes() == h_scores[order].tobytes()]
+    if not all(same) or not len(keys):
+        raise RuntimeError(f"[multi-rank A] device_key_merge differs from the "
+                           f"host merge (keys, groups, score bits equal: "
+                           f"{same}; {len(keys)} entries)")
+    log(f"[multi-rank A] device_key_merge on the first {g1}-ghost chunk of "
+        f"the DNA k={k} scale build ({int(np.isfinite(s_h).sum())} tuples in "
+        f"[{g1}, {s_h.shape[1]}, {s_h.shape[2]}] lists): {len(keys)} "
+        f"entries, byte-equal to merge_window_lists + the host lexsort "
+        f"(keys, groups, score bits); enumeration through the mesh "
+        f"{t_enum:.3f} s, device merge {t_merge:.3f} s, host merge "
+        f"{t_host:.3f} s")
+
+
+def one_rank_device_mi(torch, mesh, kres):
+    """sharded_batched_build_step at the phase-5 scale: each key batch's A
+    and counts bit-equal to the plain combine's, its f32 filter values
+    within rtol 2e-5 / atol 1e-7 of the host f64 mif0 on that A."""
+    import numpy as np
+    from ipk_tpu_torch import device as device_mod
+    from ipk_tpu_torch.builder import choose_key_batches
+    from ipk_tpu_torch.core import dense
+    from ipk_tpu_torch.core.filter import mif0_filter_values, score_threshold
+    from ipk_tpu_torch.parallel.build_sharded import (
+        pad_ghosts, sharded_batched_build_step)
+    s1, N = kres["s1"], kres["total_num_groups"]
+    k, sigma, gpg = SCALE["k"], 4, s1.ghosts_per_group
+    nl, nr = sigma ** (k // 2), sigma ** (k - k // 2)
+    key_batches = choose_key_batches(len(s1.group_ids), nl, nr)
+    threshold = score_threshold(SCALE["omega"], sigma, k)
+    P, pre, _ = pad_ghosts(s1.P_all, s1.prefix_all,
+                           mesh.size("branch") * gpg)
+    halves_fn, batch_fn, step_l = sharded_batched_build_step(
+        mesh, k=k, sigma=sigma, ghosts_per_group=gpg, total_num_groups=N,
+        threshold=threshold, key_batches=key_batches)
+    L, R, eps = halves_fn(P, pre, s1.eps)
+    walls, keys, worst_abs, worst_rel = [], 0, 0.0, 0.0
+    for b in range(key_batches):
+        lo = b * step_l
+        device_mod.synchronize(mesh.device)
+        t0 = time.monotonic()
+        A, fv, counts = batch_fn(L, R, eps, lo)
+        device_mod.synchronize(mesh.device)
+        walls.append(time.monotonic() - t0)
+        A_g, counts_ref = dense.combine_max_ref(
+            L[:, :, lo:lo + step_l].contiguous(), R, eps)
+        A_ref = dense.group_max(A_g.reshape(A_g.shape[0], -1), gpg)
+        del A_g
+        if not (torch.equal(A.view(torch.int32), A_ref.view(torch.int32))
+                and torch.equal(counts, counts_ref)):
+            raise RuntimeError(f"[multi-rank A] device-MI step, key batch "
+                               f"{b + 1}: A or counts differ from the plain "
+                               f"combine's")
+        A_np = A.cpu().numpy()
+        mask = np.isfinite(A_np)
+        present = mask.any(axis=0)
+        host = mif0_filter_values(A_np, mask, N, threshold)[present]
+        d = np.abs(fv.cpu().numpy().astype(np.float64)[present] - host)
+        worst_abs = max(worst_abs, float(d.max()))
+        worst_rel = max(worst_rel, float((d / np.abs(host)).max()))
+        beyond = int((d > 1e-7 + 2e-5 * np.abs(host)).sum())
+        keys += int(present.sum())
+        if beyond:
+            raise RuntimeError(
+                f"[multi-rank A] device-MI step, key batch {b + 1}: {beyond} "
+                f"of {int(present.sum())} filter values beyond rtol 2e-5 / "
+                f"atol 1e-7 of the host f64 mif0 (max |d| {d.max():.3g})")
+    log(f"[multi-rank A] sharded_batched_build_step on the DNA k={k} scale "
+        f"project ({key_batches} key batches): A and counts bit-equal to the "
+        f"plain combine; f32 filter values of {keys} keys within rtol 2e-5 / "
+        f"atol 1e-7 of the host f64 mif0 (max |d| {worst_abs:.3g}, max "
+        f"relative {worst_rel:.3g}); step wall per batch "
+        f"{[round(w, 4) for w in walls]} s")
+
+
+def one_rank_padding(torch, mesh, kres, sres):
+    """pad_ghosts' rows (PAD_LOG_SCORE) through both kernels beside three
+    real ghosts: no survivor, no count, no NaN."""
+    from ipk_tpu_torch.builder import stage1_state
+    from ipk_tpu_torch.core import dense, kernels, sparse
+    from ipk_tpu_torch.parallel.build_sharded import pad_ghosts
+    s1 = kres["s1"]
+    P, pre, G = pad_ghosts(s1.P_all[:3], s1.prefix_all[:3], 4)
+    Pt, pt, eps = stage1_state(P, pre, s1.eps, mesh.device)
+    L, R = dense.masked_halves(Pt, pt, eps, k=SCALE["k"], sigma=4)
+    A, counts = kernels.combine_max(L.contiguous(), R.contiguous(), eps)
+    if (bool(torch.isnan(A).any()) or bool(torch.isfinite(A[G:]).any())
+            or int(counts[G:].sum()) or not bool(torch.isfinite(A[:G]).any())):
+        raise RuntimeError("[multi-rank A] a padded ghost left a survivor, a "
+                           "count or a NaN in combine_max (or the real ghosts "
+                           "none)")
+    s1s, traits = sres["s1_traits"]
+    k, cap = SPARSE_SCALE["k"], SPARSE_SCALE["cap"]
+    P, pre, G = pad_ghosts(s1s.P_all[:3], s1s.prefix_all[:3], 4)
+    caps = sparse.probe_caps(s1s.P_all, s1s.prefix_all, s1s.eps, k=k,
+                             sigma=traits.alphabet_size, cap=cap)
+    _, (_, _, scores, _, ovf_ghosts) = sparse.enumerate_pairs_deferred(
+        P, pre, s1s.eps, k=k, sigma=traits.alphabet_size,
+        bits=traits.bits_per_symbol, caps=caps, device=mesh.device)
+    if (bool(torch.isnan(scores).any()) or bool(torch.isfinite(
+            scores[G:]).any()) or bool(ovf_ghosts[G:].any())
+            or not bool(torch.isfinite(scores[:G]).any())):
+        raise RuntimeError("[multi-rank A] a padded ghost left a survivor, an "
+                           "overflow or a NaN in the staircase enumeration "
+                           "(or the real ghosts none)")
+    log(f"[multi-rank A] pad_ghosts: 3 ghosts padded to 4 with "
+        f"PAD_LOG_SCORE, through combine_max (DNA k={SCALE['k']}) and the "
+        f"staircase enumeration (DNA k={k}): the padded ghost leaves no "
+        f"survivor, count or overflow, and no NaN anywhere")
+
+
+def phase_one_rank(torch, kres, sres, device="cuda", backend="nccl"):
+    """Phase 13 (A): the parallel layer at world size 1 over NCCL, in
+    process, called directly (the builder shards only above one rank)."""
+    import torch.distributed as dist
+    from ipk_tpu_torch.parallel.mesh import make_mesh
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(backend,
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device=device)
+        one_rank_key_merge(mesh, sres["s1_traits"])
+        one_rank_device_mi(torch, mesh, kres)
+        one_rank_padding(torch, mesh, kres, sres)
+    finally:
+        dist.destroy_process_group()
+
+
+def rank_jobs(tmp, tree_file, fasta_file, ar_dir, device):
+    """Phase 14's builds, each run by every rank: (name, job, the one-rank
+    file of an earlier phase it is held to)."""
+    mid = os.path.join(tmp, "mid")
+    scale = dict(refalign=fasta_file, reftree=tree_file, ar_dir=ar_dir,
+                 kmer_size=SCALE["k"], omega=SCALE["omega"])
+    mid_p = dict(refalign=os.path.join(mid, "reference.fasta"),
+                 reftree=os.path.join(mid, "tree.newick"),
+                 ar_dir=os.path.join(mid, "ar_out"), kmer_size=MID["k"],
+                 omega=MID["omega"])
+    cli_args = ["-r", mid_p["refalign"], "-t", mid_p["reftree"], "-k",
+                str(MID["k"]), "--omega", str(MID["omega"]), "--ar-dir",
+                mid_p["ar_dir"], "-m", "GTR", "-v", "0", "--device", device]
+    return [
+        ("dense", dict(params=scale), os.path.join(tmp, "scale_1.ipk")),
+        ("device merge", dict(params=mid_p, sparse=True),
+         os.path.join(mid, "sparse.ipk")),
+        ("positions", dict(params={**scale, "keep_positions": True}),
+         os.path.join(tmp, "scale_pos.ipk")),
+        ("device-mi", dict(params={**scale, "device_mi": True}),
+         os.path.join(tmp, "scale_1.ipk")),
+        ("CLI", dict(argv=cli_args), os.path.join(mid, "dense.ipk"))]
+
+
+def rank_main(spec_path: str, rank: int) -> int:
+    """One rank of phase 14: join the gloo world, run every job with the
+    launch counts reset before it, write the results to rank<r>.json."""
+    import torch
+    from ipk_tpu_torch import cli
+    from ipk_tpu_torch import device as device_mod
+    from ipk_tpu_torch.parallel.mesh import initialize_distributed
+    from ipk_tpu_torch.pipeline import BuildParams, build_database
+    with open(spec_path) as f:
+        spec = json.load(f)
+    n, d = spec["ranks"], spec["dir"]
+    initialize_distributed(spec["coordinator"], n, rank, backend="gloo",
+                           device=spec["device"])
+    results = {}
+    try:
+        for name, job in spec["jobs"]:
+            stem = os.path.join(d, f"{name.replace(' ', '_')}.rank{rank}")
+            out, wd = stem + ".ipk", stem + ".wd"
+            reset_counts()
+            t0 = time.monotonic()
+            if "argv" in job:
+                # the CLI finds the world joined and keeps it
+                rc = cli.main(["build", *job["argv"], "-o", out, "-w", wd,
+                               "--coordinator", spec["coordinator"],
+                               "--num-hosts", str(n), "--host-id",
+                               str(rank)])
+                if rc:
+                    raise RuntimeError(f"[rank {rank}] the CLI build "
+                                       f"returned {rc}")
+                info = {}
+            else:
+                params = BuildParams(**job["params"], working_dir=wd,
+                                     output_filename=out, verbosity=0,
+                                     device=spec["device"])
+                result = (build_sparse(params, out) if job.get("sparse")
+                          else build_database(params))
+                info = dict(merge=result.stats.get("merge"),
+                            explored=result.num_explored)
+            device_mod.synchronize(device_mod.resolve(spec["device"]))
+            info.update(wall=time.monotonic() - t0, launches=read_counts(),
+                        out=out)
+            results[name] = info
+            log(f"[rank {rank}] {name}: {info['wall']:.3f} s, kernel "
+                f"launches {json.dumps(info['launches'])}")
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def close_rows(path, ref_path, label):
+    """Raise unless the device-MI database holds the host-filter database's
+    rows (keys, branches, scores) with filter values within rtol 2e-5 /
+    atol 1e-7; return the largest difference."""
+    import numpy as np
+    got, ref = by_key(load_db(path)), by_key(load_db(ref_path))
+    same = [a.tobytes() == b.tobytes()
+            for i, (a, b) in enumerate(zip(got, ref)) if i != 1]
+    d = np.abs(got[1].astype(np.float64) - ref[1].astype(np.float64))
+    beyond = int((d > 1e-7 + 2e-5 * np.abs(ref[1])).sum())
+    if not all(same) or beyond or not len(got[0]):
+        raise RuntimeError(f"[multi-rank B] {label}: rows differ from the "
+                           f"host-filter build (keys, counts, branches, "
+                           f"scores equal: {same}) or {beyond} filter values "
+                           f"beyond rtol 2e-5 / atol 1e-7")
+    return float(d.max())
+
+
+def phase_two_ranks(tmp, tree_file, fasta_file, ar_dir, kernel_tuples,
+                    device="cuda"):
+    """Phase 14 (B): two ranks over gloo on the one card, each a process of
+    this script, run every build of rank_jobs; every rank's file is held to
+    the one-rank build of an earlier phase."""
+    d = os.path.join(tmp, "ranks")
+    os.makedirs(d)
+    jobs = rank_jobs(tmp, tree_file, fasta_file, ar_dir, device)
+    spec_path = os.path.join(d, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(dict(dir=d, ranks=2, device=device,
+                       coordinator=f"127.0.0.1:{free_port()}",
+                       jobs=[(name, job) for name, job, _ in jobs]), f)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])}
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    logs = [os.path.join(d, f"rank{r}.log") for r in range(2)]
+    t0 = time.monotonic()
+    procs = []
+    try:
+        for r in range(2):
+            with open(logs[r], "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank",
+                     spec_path, str(r)], cwd=d, env=env, stdout=out,
+                    stderr=subprocess.STDOUT))
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.monotonic() - t0
+    for r in range(2):
+        for line in open(logs[r]).read().splitlines()[-40:]:
+            log(f"  rank {r}| {line}")
+    if any(rcs):
+        raise RuntimeError(f"[multi-rank B] a rank failed: exit codes {rcs}")
+    results = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    for name, _, ref in jobs:
+        for r, res in enumerate(results):
+            info = res[name]
+            if name == "device-mi":
+                info["max_abs_fv_diff"] = close_rows(info["out"], ref, name)
+            elif name == "CLI":
+                if open(info["out"], "rb").read() != open(ref, "rb").read():
+                    raise RuntimeError(f"[multi-rank B] CLI: rank {r}'s file "
+                                       f"is not byte-equal to the one-rank "
+                                       f"build")
+            elif payload(info["out"]) != payload(ref):
+                raise RuntimeError(f"[multi-rank B] {name}: rank {r}'s "
+                                   f"database differs from the one-rank "
+                                   f"build's")
+        if name == "device merge" and any(
+                res[name]["merge"] != "device" for res in results):
+            raise RuntimeError(f"[multi-rank B] device merge: the merge took "
+                               f"{[res[name]['merge'] for res in results]}")
+        if name == "dense" and any(res[name]["explored"] != kernel_tuples
+                                   for res in results):
+            raise RuntimeError("[multi-rank B] dense: the explored count is "
+                               "not the one-rank build's")
+    summary = {name: dict(
+        wall_s=[round(res[name]["wall"], 3) for res in results],
+        launches=[res[name]["launches"] for res in results],
+        **({"merge": results[0][name]["merge"]} if name == "device merge"
+           else {}),
+        **({"max_abs_fv_diff": max(res[name]["max_abs_fv_diff"]
+                                   for res in results)}
+           if name == "device-mi" else {}))
+        for name, _, _ in jobs}
+    log(f"[multi-rank B] 2 ranks over gloo on one card: every rank's file "
+        f"equal to its one-rank build (dense, device merge, positions and "
+        f"CLI by payload or bytes; device-mi by rows, fv within rtol 2e-5 / "
+        f"atol 1e-7); ranks' wall {wall:.1f} s")
+    return summary
+
+
 def reset_counts():
     from ipk_tpu_torch.core import kernels
     for name in KERNELS:
@@ -1476,6 +1898,8 @@ def main() -> int:
               "script; run it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_main(sys.argv[2], int(sys.argv[3]))
     import torch
     smi = phase_device(torch)
     phase_build()
@@ -1523,11 +1947,29 @@ def main() -> int:
         path("place", (phase_placement, (torch, tmp, fasta_file)))
         path("native AR", (phase_native_ar, (torch, tmp, tree_file,
                                              fasta_file)))
+        path("profile", (phase_profile, (torch, tmp, tree_file, fasta_file,
+                                         ar_dir)))
+        path("multi-rank A", (phase_one_rank, (torch, kres, sres)))
+        del kres["s1"], sres["s1_traits"]
+        torch.cuda.empty_cache()
+        t_b = time.monotonic()
+        ranks = phase_two_ranks(tmp, tree_file, fasta_file, ar_dir,
+                                kres["tuples"])
+        walls["multi-rank B"] = time.monotonic() - t_b
+        log(f"[multi-rank] A (NCCL, 1 rank, in process): wall "
+            f"{walls['multi-rank A']:.3f} s, launches "
+            f"{json.dumps(counts['multi-rank A'])}; B (gloo, 2 ranks sharing "
+            f"one card: a correctness check, not a scaling measurement): "
+            f"wall "
+            f"{walls['multi-rank B']:.3f} s, per build and rank "
+            f"{json.dumps(ranks)}; {smi}")
         required = [("dense", "combine_max"), ("sparse", "staircase_select"),
                     ("positions", "combine_max_with_positions"),
                     ("on-disk", "combine_max"),
                     ("on-disk", "staircase_select"),
-                    ("native AR", "combine_max")]
+                    ("native AR", "combine_max"), ("profile", "combine_max"),
+                    ("multi-rank A", "combine_max"),
+                    ("multi-rank A", "staircase_select")]
         missing = [f"{k} on the {p} path" for p, k in required
                    if counts[p][k] <= 0]
         if missing:
@@ -1542,7 +1984,8 @@ def main() -> int:
         "source": "ipk_tpu_torch/core/csrc/combine_max.cu",
         "replaces": "ipk_tpu/core/pallas_kernels.py:163",
         "launches": sum(counts[p]["combine_max"]
-                        for p in ("dense", "on-disk", "native AR")),
+                        for p in ("dense", "on-disk", "native AR", "profile",
+                                  "multi-rank A")),
         "max_abs_err": kres["max_abs_err"],
         "ms": kres["ms"], "plain_ms": kres["plain_ms"],
         "bound_ms": kres["bound_ms"], "bound_by": kres["bound_by"],
@@ -1559,7 +2002,7 @@ def main() -> int:
         "source": "ipk_tpu_torch/core/csrc/staircase_select.cu",
         "replaces": "ipk_tpu/core/pallas_kernels.py:404",
         "launches": sum(counts[p]["staircase_select"]
-                        for p in ("sparse", "on-disk")),
+                        for p in ("sparse", "on-disk", "multi-rank A")),
         "max_abs_err": sres["max_abs_err"],
         "ms": sres["ms"], "plain_ms": sres["plain_ms"],
         "bound_ms": sres["bound_ms"], "bound_by": sres["bound_by"],

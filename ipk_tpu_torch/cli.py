@@ -127,11 +127,22 @@ def _build_parser() -> argparse.ArgumentParser:
     b.add_argument("--max-candidates", type=int, default=4096,
                    help="Per-window survivor-list capacity on the large-k "
                         "(sparse) path; the build fails loudly if exceeded.")
-    b.add_argument("--profile", dest="profile_dir", default="")
-    b.add_argument("--device-mi", action="store_true")
-    b.add_argument("--coordinator", default="")
-    b.add_argument("--num-hosts", type=int, default=0)
-    b.add_argument("--host-id", type=int, default=-1)
+    b.add_argument("--profile", dest="profile_dir", default="",
+                   help="Write a torch.profiler Chrome trace of the build "
+                        "into DIR.")
+    b.add_argument("--device-mi", action="store_true",
+                   help="Compute the mif0 filter on the devices as "
+                        "collectives (f32) instead of the host f64 pass; "
+                        "needs more than one rank.")
+    b.add_argument("--coordinator", default="",
+                   help="Multi-rank: rank 0's rendezvous address host:port "
+                        "(the same for every rank).")
+    b.add_argument("--num-hosts", type=int, default=0,
+                   help="Multi-rank: the number of ranks, one process and "
+                        "one device each.")
+    b.add_argument("--host-id", type=int, default=-1,
+                   help="Multi-rank: this process's rank in [0, "
+                        "num-hosts).")
     b.add_argument("--device", default="cuda",
                    help="torch device to build on: cuda (default), cuda:N "
                         "or cpu.")
@@ -180,10 +191,16 @@ def _build(args, parser: argparse.ArgumentParser) -> int:
         print("Error: --keep-positions is not supported for DNA.",
               file=sys.stderr)
         return 1
-    if args.num_hosts > 1:
-        raise NotImplementedError(
-            "multi-host builds are not ported yet: ROADMAP.md item 8")
     from .pipeline import BuildParams, build_database
+    created = False
+    if args.num_hosts > 1:
+        # one rank a process, each with one device (--device cpu: gloo)
+        from .parallel.mesh import initialize_distributed
+        created = initialize_distributed(
+            coordinator=args.coordinator or None,
+            num_processes=args.num_hosts,
+            process_id=args.host_id if args.host_id >= 0 else None,
+            device=args.device)
     params = BuildParams(
         refalign=args.refalign, reftree=args.reftree, states=args.states,
         working_dir=args.workdir,
@@ -204,7 +221,12 @@ def _build(args, parser: argparse.ArgumentParser) -> int:
         max_candidates=args.max_candidates, profile_dir=args.profile_dir,
         device_mi=args.device_mi, verbosity=args.verbosity,
         device=args.device)
-    build_database(params)
+    try:
+        build_database(params)
+    finally:
+        if created:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     return 0
 
 

@@ -28,8 +28,14 @@ Codes are int64 on the device (each half-window code needs at most 32 bits,
 and torch has no shift or compare on uint32); the host packs the final
 (prefix, suffix) pairs into uint64 keys (:func:`_pack_host`).
 
-Not ported: the TPU-tuned ``GROUP_SPANS`` and ``SORT_WINDOWS`` knobs, the
-``IPK_TPU_SPARSE_KERNEL`` override and the mesh (multi-GPU is later work).
+With a mesh (``parallel.mesh``), the ghost rows of a dispatch are padded to
+the branch axis and each rank enumerates its contiguous slice; the overflow
+flags are OR-ed over the ranks, so every rank grows the same caps, and the
+settled lists are gathered onto every rank (:func:`resolve_overflow`), or
+stay where they are for the device key merge (``parallel.key_merge``).
+
+Not ported: the TPU-tuned ``GROUP_SPANS`` and ``SORT_WINDOWS`` knobs and the
+``IPK_TPU_SPARSE_KERNEL`` override.
 """
 
 from __future__ import annotations
@@ -44,8 +50,9 @@ from .. import device as device_mod
 from .dense import NEG_INF, split_tree
 
 __all__ = ["enumerate_sparse", "enumerate_sparse_many", "merge_window_lists",
-           "probe_caps", "default_caps", "normalize_caps",
-           "staircase_select_ref", "COMPLETE_LIMIT"]
+           "enumerate_pairs_deferred", "resolve_overflow", "probe_caps",
+           "default_caps", "normalize_caps", "staircase_select_ref",
+           "COMPLETE_LIMIT"]
 
 #: spans with σ^h at or below this stay complete (no selection, no overflow)
 COMPLETE_LIMIT = 256
@@ -419,23 +426,72 @@ def _pairs_device(P_all: torch.Tensor, prefix_all: torch.Tensor,
     raise AssertionError("unreachable")  # pragma: no cover
 
 
-def resolve_overflow(result, *, k: int, sigma: int, cap: int, caps: Dict):
+def enumerate_pairs_deferred(P_all, prefix_all, log_threshold, *, k: int,
+                             sigma: int, bits: int, caps: Dict,
+                             use_kernel: Optional[bool] = None, mesh=None,
+                             device: device_mod.DeviceLike = "cuda"):
+    """Dispatch one whole-batch enumeration of the ghost rows (numpy P_all
+    [G, S, σ], prefix_all [G, S+1]) without reading its overflow flags
+    (``ipk_tpu``'s ``enumerate_pairs_deferred``). With ``mesh`` the rows are
+    padded to a multiple of its branch axis and this rank enumerates its
+    contiguous slice on ``mesh.device``. Returns the pending handle
+    (G, this rank's ``_pairs_device`` output) for :func:`resolve_overflow`.
+    """
+    G0 = P_all.shape[0]
+    if mesh is not None:
+        from ..parallel.build_sharded import pad_ghosts
+        P_all, prefix_all, _ = pad_ghosts(
+            np.asarray(P_all, np.float32), np.asarray(prefix_all, np.float32),
+            mesh.size("branch"))
+        P_all, prefix_all = mesh.local_rows(P_all), mesh.local_rows(prefix_all)
+        dev = mesh.device
+    else:
+        dev = device_mod.resolve(device)
+    P = torch.from_numpy(np.ascontiguousarray(P_all, np.float32)).to(dev)
+    prefix = torch.from_numpy(
+        np.ascontiguousarray(prefix_all, np.float32)).to(dev)
+    thr = torch.tensor(np.float32(log_threshold), dtype=torch.float32,
+                       device=dev)
+    return G0, _pairs_device(P, prefix, thr, k=k, sigma=sigma, bits=bits,
+                             caps=caps, use_kernel=use_kernel is None
+                             or bool(use_kernel))
+
+
+def resolve_overflow(pend, *, k: int, sigma: int, cap: int, caps: Dict,
+                     mesh=None, gather: bool = True):
     """Settle one enumeration (``ipk_tpu``'s ``resolve_deferred``): one small
     host read of the per-span overflow vector; overflowing spans grow their
-    caps and ask for a re-run.
+    caps and ask for a re-run. With ``mesh`` the vector is OR-ed over its
+    branch axis first, and the settled lists of every rank are gathered
+    (``gather=False`` keeps this rank's rows of the padded ghost axis, for a
+    caller that goes on across the ranks, as the device key merge does).
 
-    Returns (done, result, caps): done=True with result = (cl, cr, scores,
-    overflow [G] np.bool_) when the chunk is complete (the flags are set only
-    at the cap ceiling); done=False with result=None when the caller must
-    re-run with the returned (grown) caps.
+    ``pend`` is :func:`enumerate_pairs_deferred`'s handle. Returns (done,
+    result, caps): done=True with result = (cl, cr, scores, overflow [G]
+    np.bool_) over all G rows when the chunk is complete (the flags are set
+    only at the cap ceiling); done=False with result=None when the caller
+    must re-run with the returned (grown) caps.
     """
     spans_order = _spans(k) if k > 1 else [(0, 1)]
-    cl, cr, scores, ovf_spans, ovf_ghosts = result
+    G, (cl, cr, scores, ovf_spans, ovf_ghosts) = pend
+    if mesh is not None:
+        ovf_spans = mesh.all_reduce(ovf_spans.to(torch.int32), "branch",
+                                    op="max")
+
+    def gathered(x):
+        if mesh is not None:
+            x = mesh.all_gather(x, "branch")
+        return x[:G]
+
+    def lists():
+        if mesh is not None and not gather:
+            return cl, cr, scores
+        return gathered(cl), gathered(cr), gathered(scores)
+
     vec = ovf_spans.cpu().numpy()
     flagged = [s for s, f in zip(spans_order, vec) if f]
-    G = scores.shape[0]
     if not flagged:
-        return True, (cl, cr, scores, np.zeros((G,), bool)), caps
+        return True, (*lists(), np.zeros((G,), bool)), caps
     grew = False
     new_caps = dict(caps)
     for span in flagged:
@@ -447,7 +503,9 @@ def resolve_overflow(result, *, k: int, sigma: int, cap: int, caps: Dict):
             grew = True
     if not grew:
         # ceiling reached: report which ghosts overflowed
-        return True, (cl, cr, scores, ovf_ghosts.cpu().numpy()), caps
+        return True, (*lists(),
+                      gathered(ovf_ghosts.to(torch.int32)).cpu().numpy()
+                      .astype(bool)), caps
     return False, None, normalize_caps(new_caps, k, sigma, cap)
 
 
@@ -470,7 +528,8 @@ def enumerate_sparse_many(P_all, prefix_all, log_threshold, *, k: int,
                           probe: bool = True,
                           combine_budget_bytes: int = 4 << 30,
                           stats: Optional[Dict] = None,
-                          device: device_mod.DeviceLike = "cuda"):
+                          device: device_mod.DeviceLike = "cuda",
+                          mesh=None):
     """Ghost-batched sparse enumeration (host-facing).
 
     P_all: [G, S, sigma], prefix_all: [G, S+1] (numpy). Returns
@@ -481,7 +540,9 @@ def enumerate_sparse_many(P_all, prefix_all, log_threshold, *, k: int,
     ``combine_budget_bytes``. Every chunk first runs with the caps the call
     started from; a chunk that overflows re-runs with the caps grown so far,
     doubled on its flagged spans — ``ipk_tpu``'s dispatch-all-then-settle
-    schedule, run one chunk at a time, so the output widths agree too.
+    schedule, run one chunk at a time, so the output widths agree too. With
+    ``mesh`` each chunk's rows are shared out over its branch axis (on
+    ``mesh.device``) and every rank returns all of them.
 
     ``use_kernel`` None or True takes ``kernels.staircase_select`` (the CUDA
     kernel for CUDA tensors, its plain version for CPU tensors); False takes
@@ -510,10 +571,7 @@ def enumerate_sparse_many(P_all, prefix_all, log_threshold, *, k: int,
         caps = (probe_caps(P_all, prefix_all, log_threshold, k=k,
                            sigma=sigma, cap=cap)
                 if probe else default_caps(k, sigma, cap))
-    dev = device_mod.resolve(device)
-    use_kernel = use_kernel is None or bool(use_kernel)
-    thr = torch.tensor(np.float32(log_threshold), dtype=torch.float32,
-                       device=dev)
+    dev = mesh.device if mesh is not None else device_mod.resolve(device)
     # working set per ghost: outputs (3 x [W, top_cap]) plus per-span
     # survivor lists — dominated by the top span
     top_cap = min(cap, max(list(caps.values()) + [128]))
@@ -523,13 +581,13 @@ def enumerate_sparse_many(P_all, prefix_all, log_threshold, *, k: int,
 
     def run(g0: int, g1: int, caps_: Dict):
         t0 = time.monotonic()
-        P = torch.from_numpy(P_all[g0:g1]).to(dev)
-        prefix = torch.from_numpy(prefix_all[g0:g1]).to(dev)
-        out = _pairs_device(P, prefix, thr, k=k, sigma=sigma, bits=bits,
-                            caps=caps_, use_kernel=use_kernel)
+        pend = enumerate_pairs_deferred(
+            P_all[g0:g1], prefix_all[g0:g1], log_threshold, k=k,
+            sigma=sigma, bits=bits, caps=caps_, use_kernel=use_kernel,
+            mesh=mesh, device=dev)
         device_mod.synchronize(dev)
         _stat_add(stats, "device_compute", time.monotonic() - t0)
-        return out
+        return pend
 
     out_c, out_s = [], []
     overflow = np.zeros((G,), bool)
@@ -538,7 +596,8 @@ def enumerate_sparse_many(P_all, prefix_all, log_threshold, *, k: int,
         pend = run(g0, g1, start_caps)
         while True:
             done, result, caps = resolve_overflow(pend, k=k, sigma=sigma,
-                                                  cap=cap, caps=caps)
+                                                  cap=cap, caps=caps,
+                                                  mesh=mesh)
             if done:
                 break
             _stat_add(stats, "redispatches", 1)

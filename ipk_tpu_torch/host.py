@@ -96,7 +96,8 @@ class _Progress:
 class BuildResult:
     """The database, the explored-tuple count, the stage timings and, for a
     sparse build, its telemetry in ``stats`` ("redispatches",
-    "final_caps")."""
+    "final_caps", and "merge": "device", "host" or "host, after a bin
+    overflow")."""
 
     def __init__(self, db: PhyloKmerDB, num_explored: int,
                  timings: Dict[str, float], stats: Optional[Dict] = None):
@@ -135,9 +136,10 @@ def _extract_batch(A: np.ndarray, lo: int, pos: Optional[np.ndarray],
                    group_ids: List[int], k: int, traits: SeqTraits,
                    total_num_groups: int, threshold: float,
                    filter_type: str, rng_stream: Optional[RandomFilterStream],
-                   merge_branches: bool):
+                   merge_branches: bool, fv_override=None):
     """Dense batch A[B, chunk] → (keys, fv, counts, branches, scores,
-    positions)."""
+    positions). ``fv_override`` holds the distributed f32 filter values per
+    dense key index (``--device-mi``)."""
     mask = np.isfinite(A)
     if merge_branches:
         best_b = A.argmax(axis=0)
@@ -160,7 +162,9 @@ def _extract_batch(A: np.ndarray, lo: int, pos: Optional[np.ndarray],
     positions = (np.ascontiguousarray(pos[:, cols].T).ravel()[flat]
                  .astype(np.uint32) if pos is not None else None)
 
-    if filter_type == "mif0":
+    if fv_override is not None:
+        fv = fv_override[cols + lo].astype(np.float64)
+    elif filter_type == "mif0":
         offsets = np.zeros(len(cols) + 1, dtype=np.int64)
         np.cumsum(counts, out=offsets[1:])
         fv = mif0_filter_values_entries(scores, None, len(cols),

@@ -66,7 +66,7 @@ class BuildParams:
     convert_uo: bool = False
     write_reduction: str = ""
     max_candidates: int = 4096   # survivor-list cap on the sparse large-k path
-    profile_dir: str = ""        # not ported yet
+    profile_dir: str = ""        # torch.profiler Chrome trace of the build
     use_unrooted: bool = False
     merge_branches: bool = False
     keep_positions: bool = False
@@ -92,10 +92,6 @@ class BuildInputs(NamedTuple):
 def prepare(p: BuildParams) -> Optional[BuildInputs]:
     """Run the stages before the build (alignment, tree extension, AR) and
     write their artifacts; None when ``p.ar_only`` stops after AR."""
-    if p.profile_dir:
-        raise NotImplementedError(
-            "--profile is not ported yet: its torch.profiler replacement is "
-            "a later tracing change (ROADMAP.md item 10)")
     set_host_threads(p.num_threads)
     ar_threads = p.num_threads if p.num_threads > 0 else (os.cpu_count() or 1)
     traits = get_traits(p.states)
@@ -197,14 +193,41 @@ def build_database(p: BuildParams) -> Optional[BuildResult]:
     if inp is None:
         return None
     output = p.output_filename or os.path.join(p.working_dir, "DB.ipk")
-    return build(inp.original_tree, inp.extended_tree, inp.ghost_mapping,
-                 inp.ar_mapping, inp.label_rows, inp.P,
-                 traits=inp.traits, kmer_size=p.kmer_size, omega=p.omega,
-                 filter_type=p.filter, ghost_strategy=p.ghosts,
-                 merge_branches=p.merge_branches,
-                 keep_positions=p.keep_positions,
-                 output_filename=output, uncompressed=p.uncompressed,
-                 on_disk=p.on_disk, working_dir=p.working_dir,
-                 sparse_cap=p.max_candidates,
-                 device_mi=p.device_mi, device=p.device,
-                 verbose=p.verbosity)
+
+    def run_build():
+        return build(inp.original_tree, inp.extended_tree, inp.ghost_mapping,
+                     inp.ar_mapping, inp.label_rows, inp.P,
+                     traits=inp.traits, kmer_size=p.kmer_size, omega=p.omega,
+                     filter_type=p.filter, ghost_strategy=p.ghosts,
+                     merge_branches=p.merge_branches,
+                     keep_positions=p.keep_positions,
+                     output_filename=output, uncompressed=p.uncompressed,
+                     on_disk=p.on_disk, working_dir=p.working_dir,
+                     sparse_cap=p.max_candidates,
+                     device_mi=p.device_mi, device=p.device,
+                     verbose=p.verbosity)
+
+    if not p.profile_dir:
+        return run_build()
+    # --profile: the build alone under torch.profiler (CPU, and CUDA on a
+    # card), as ipk_tpu traces it (ipk_tpu/pipeline.py:177-183); the Chrome
+    # trace goes to <profile_dir>/trace.json (trace.rank<N>.json on rank N of
+    # a world of more than one). Every thread is traced: stage 1 runs in the
+    # prefetch worker.
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+    from .device import resolve
+    from .parallel.mesh import world_size
+    activities = [ProfilerActivity.CPU]
+    if resolve(p.device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, experimental_config=(
+            _ExperimentalConfig(profile_all_threads=True))) as prof:
+        result = run_build()
+    os.makedirs(p.profile_dir, exist_ok=True)
+    name = "trace.json"
+    if world_size() > 1:
+        name = f"trace.rank{torch.distributed.get_rank()}.json"
+    prof.export_chrome_trace(os.path.join(p.profile_dir, name))
+    return result

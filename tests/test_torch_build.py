@@ -1,11 +1,13 @@
 """The port's builds end to end on the CPU, against ipk_tpu: the dense and
-sparse paths, --keep-positions, --on-disk and --device-mi on one device.
+sparse paths, --keep-positions, --on-disk, --device-mi on one device,
+--profile, and the CLI's two-process build.
 
 Tolerance: none. Databases are compared by their decompressed payload (every
 header field, column byte and row order), as tests/test_golden.py does.
 """
 
 import os
+import socket
 import subprocess
 import sys
 import zlib
@@ -123,6 +125,8 @@ def build_pair(project, name, monkeypatch, key_batches=None, transfer=None,
     ("bitmask", {"transfer": "bitmask"}),
     ("dense", {"transfer": "dense"}),
     ("dense_merge", {"transfer": "dense", "merge_branches": True}),
+    ("inner_only", {"ghosts": "inner-only"}),
+    ("outer_only", {"ghosts": "outer-only"}),
 ])
 def test_port_matches_jax_build(dna_project, monkeypatch, name, opts):
     jax_out, torch_out = build_pair(dna_project, name, monkeypatch, **opts)
@@ -132,6 +136,7 @@ def test_port_matches_jax_build(dna_project, monkeypatch, name, opts):
 @pytest.mark.parametrize("name,opts", [
     ("aa_mif0", {}),
     ("aa_bitmask_merge", {"transfer": "bitmask", "merge_branches": True}),
+    ("aa_outer_only", {"ghosts": "outer-only"}),
 ])
 def test_port_matches_jax_build_amino(aa_project, monkeypatch, name, opts):
     from ipk_tpu import serialize
@@ -157,6 +162,72 @@ def test_port_matches_jax_build_sparse_amino(aa_project, monkeypatch):
                                     sparse=True)
     assert payload(torch_out) == payload(jax_out)
     assert serialize.load(torch_out).size() > 0
+
+
+def test_port_matches_jax_build_unrooted(tmp_path, monkeypatch):
+    """--use-unrooted: an unrooted reference tree (a root trifurcation)
+    builds payload-equal to ipk_tpu's build (tests/test_tree.py's
+    preprocess check, through the whole build)."""
+    from fixtures import make_ar_dir, random_alignment
+    from ipk_tpu.alignment import save_alignment
+    from ipk_tpu.tree import extend_tree, parse_newick
+    newick = ("((L0:0.3,L1:0.2):0.1,L2:0.4,(L3:0.25,(L4:0.5,L5:0.15):0.2)"
+              ":0.3);")
+    tree_file = str(tmp_path / "tree.newick")
+    with open(tree_file, "w") as f:
+        f.write(newick + "\n")
+    rng = np.random.default_rng(31)
+    fasta_file = str(tmp_path / "reference.fasta")
+    save_alignment(random_alignment(rng, [f"L{i}" for i in range(6)], 25,
+                                    gap_prob=0.0), fasta_file, "fasta")
+    ar_dir, _ = make_ar_dir(tmp_path, extend_tree(parse_newick(newick))[0],
+                            25, seed=32)
+    project = (tmp_path, "nucl", 5, 1.5, tree_file, fasta_file, ar_dir)
+    jax_out, torch_out = build_pair(project, "unrooted", monkeypatch,
+                                    use_unrooted=True)
+    assert payload(torch_out) == payload(jax_out)
+    from ipk_tpu import serialize
+    assert serialize.load(torch_out).size() > 0
+
+
+def test_port_matches_jax_build_convert_uo(aa_project, monkeypatch):
+    """--convert-uo: an amino alignment holding U and O builds, with them
+    read as C and L, payload-equal to ipk_tpu's build."""
+    tmp, states, k, omega, tree_file, fasta_file, ar_dir = aa_project
+    lines = open(fasta_file).read().splitlines()
+    rng = np.random.default_rng(4)
+    for i, line in enumerate(lines):
+        if not line.startswith(">"):
+            chars = list(line)
+            for j in rng.choice(len(chars), 3, replace=False):
+                chars[j] = "UO"[j % 2]
+            lines[i] = "".join(chars)
+    uo_fasta = str(tmp / "reference_uo.fasta")
+    with open(uo_fasta, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    project = (tmp, states, k, omega, tree_file, uo_fasta, ar_dir)
+    jax_out, torch_out = build_pair(project, "convert_uo", monkeypatch,
+                                    convert_uo=True)
+    assert payload(torch_out) == payload(jax_out)
+
+
+def test_port_matches_jax_build_write_reduction(dna_project, monkeypatch):
+    """--write-reduction: the reduced alignment the port writes is
+    byte-equal to ipk_tpu's, and so are the databases."""
+    tmp, states, k, omega, tree_file, fasta_file, ar_dir = dna_project
+    outs = []
+    for tag, params_cls, run, extra in [
+            ("jax", JaxParams, jax_build_database, {}),
+            ("torch", BuildParams, build_database, {"device": "cpu"})]:
+        out = str(tmp / f"reduction_{tag}.ipk")
+        red = str(tmp / f"reduction_{tag}.fasta")
+        run(params_cls(refalign=fasta_file, reftree=tree_file, states=states,
+                       working_dir=str(tmp / f"wd_reduction_{tag}"),
+                       ar_dir=ar_dir, kmer_size=k, omega=omega,
+                       output_filename=out, write_reduction=red,
+                       verbosity=0, **extra))
+        outs.append((payload(out), open(red, "rb").read()))
+    assert outs[0] == outs[1] and outs[0][1]
 
 
 def test_sparse_equals_dense_build(dna_project, monkeypatch):
@@ -251,9 +322,10 @@ def test_cli_build_diff_dump(tmp_path):
 @pytest.mark.parametrize("what", ["keep_positions", "on_disk", "ar_native",
                                   "profile"])
 def test_unported_modes_raise(tmp_path, what):
-    """Of the modes the first port left out, only --profile still raises
-    NotImplementedError naming its ROADMAP item; --keep-positions,
-    --on-disk and --ar native build a database now."""
+    """None of the modes the first port left out raises any more:
+    --keep-positions, --on-disk and --ar native build a database, and
+    --profile writes a torch.profiler Chrome trace of the build beside a
+    database equal to the unprofiled build's."""
     tree_file, fasta_file, ar_dir = make_project(tmp_path, num_leaves=4,
                                                  width=20, seed=8)
     out = str(tmp_path / "x.ipk")
@@ -262,9 +334,16 @@ def test_unported_modes_raise(tmp_path, what):
                          kmer_size=5, output_filename=out, verbosity=0,
                          device="cpu")
     if what == "profile":
+        build_database(params)
+        plain = payload(out)
         params.profile_dir = str(tmp_path / "trace")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
-            build_database(params)
+        build_database(params)
+        import json
+        with open(tmp_path / "trace" / "trace.json") as f:
+            events = json.load(f)["traceEvents"]
+        assert any(str(e.get("name", "")).startswith("aten::")
+                   for e in events)
+        assert payload(out) == plain
         return
     if what == "keep_positions":
         params.keep_positions = True
@@ -279,14 +358,59 @@ def test_unported_modes_raise(tmp_path, what):
     assert (db.positions is not None) == (what == "keep_positions")
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def test_cli_multi_host_raises(tmp_path):
+    """--num-hosts 2 no longer raises: tests/test_multihost.py through the
+    port's CLI on the CPU, where two ranks joined by --coordinator,
+    --num-hosts and --host-id (gloo) each write a file byte-equal to the
+    one-process build's."""
+    tree_file, fasta_file, ar_dir = make_project(tmp_path, num_leaves=12,
+                                                 width=80, seed=5)
+
+    def argv(tag, extra=()):
+        out = tmp_path / f"DB_{tag}.ipk"
+        return [sys.executable, "-m", "ipk_tpu_torch", "build",
+                "-r", fasta_file, "-t", tree_file, "-m", "GTR",
+                "--ar-dir", ar_dir, "-k", "6",
+                "-w", str(tmp_path / f"wd_{tag}"), "-o", str(out), "-v", "0", "--device", "cpu", *extra], out
+
+    dist = ["--coordinator", f"127.0.0.1:{free_port()}", "--num-hosts", "2"]
+    runs = [argv("single")] + [argv(f"h{r}", dist + ["--host-id", str(r)])
+                               for r in range(2)]
+    procs = [subprocess.Popen(args, env=subprocess_env(),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for args, _ in runs]
+    try:
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err.decode()[-3000:]
+    single = runs[0][1].read_bytes()
+    assert single and all(out.read_bytes() == single for _, out in runs[1:])
+
+
+def test_cli_multi_host_needs_rank_and_coordinator(tmp_path):
+    """--num-hosts above 1 without a rank or a coordinator raises before any
+    rendezvous."""
     from ipk_tpu_torch.cli import main
     tree_file, fasta_file, ar_dir = make_project(tmp_path, num_leaves=4,
                                                  width=12, seed=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8"):
-        main(["build", "-r", fasta_file, "-t", tree_file, "-w",
-              str(tmp_path / "wd"), "--ar-dir", ar_dir, "-m", "GTR",
-              "--num-hosts", "2", "--device", "cpu"])
+    base = ["build", "-r", fasta_file, "-t", tree_file, "-w",
+            str(tmp_path / "wd"), "--ar-dir", ar_dir, "-m", "GTR",
+            "--num-hosts", "2", "--device", "cpu"]
+    with pytest.raises(ValueError, match="process_id"):
+        main(base + ["--coordinator", "127.0.0.1:1"])
+    with pytest.raises(ValueError, match="coordinator"):
+        main(base + ["--host-id", "1"])
 
 
 def test_cuda_requested_without_card_raises():
