@@ -607,8 +607,9 @@ def staircase_chunk(s1_traits, ghosts=32, cap=None, caps=None):
     staircase_select call's inputs. caps None takes the probe's plan under
     the ceiling ``cap`` (SPARSE_SCALE's by default), as the build does.
     Returns (ghost rows, enumerate_sparse_many's keyword arguments,
-    [(args, kwargs)] of each launch, its result, its stats)."""
+    [(args, kwargs)] of each launch, its result, its stats and timings)."""
     from ipk_tpu_torch.core import kernels, sparse
+    from ipk_tpu_torch.spans import Recorder
     s1, traits = s1_traits
     k = SPARSE_SCALE["k"]
     cap = cap or SPARSE_SCALE["cap"]
@@ -631,12 +632,13 @@ def staircase_chunk(s1_traits, ghosts=32, cap=None, caps=None):
     recording.launches = 0
     kernels.staircase_select = recording
     try:
-        stats = {}
+        stats, rec = {}, Recorder()
         out = sparse.enumerate_sparse_many(
-            s1.P_all[:g1], s1.prefix_all[:g1], s1.eps, stats=stats, **chunk)
+            s1.P_all[:g1], s1.prefix_all[:g1], s1.eps, stats=stats,
+            recorder=rec, **chunk)
     finally:
         kernels.staircase_select = select
-    return g1, chunk, recorded, out, stats
+    return g1, chunk, recorded, out, {**stats, **rec.timings}
 
 
 def chunk_vs_plain(s1, g1, chunk, out_k, st_k, n_launches, label):
@@ -645,10 +647,11 @@ def chunk_vs_plain(s1, g1, chunk, out_k, st_k, n_launches, label):
     score bits, overflow) and the kernel ran; log both."""
     import numpy as np
     from ipk_tpu_torch.core import sparse
-    st_p = {}
+    from ipk_tpu_torch.spans import Recorder
+    rec_p = Recorder()
     out_p = sparse.enumerate_sparse_many(
         s1.P_all[:g1], s1.prefix_all[:g1], s1.eps, use_kernel=False,
-        stats=st_p, **chunk)
+        recorder=rec_p, **chunk)
     same = (np.array_equal(out_k[0], out_p[0])
             and np.array_equal(out_k[1].view(np.uint32),
                                out_p[1].view(np.uint32))
@@ -664,7 +667,7 @@ def chunk_vs_plain(s1, g1, chunk, out_k, st_k, n_launches, label):
         f"scores, overflow; {int(np.isfinite(out_k[1]).sum())} survivors, "
         f"{st_k.get('redispatches', 0)} re-dispatches); device_compute "
         f"kernel route {st_k['device_compute']:.6f} s, plain route "
-        f"{st_p['device_compute']:.6f} s")
+        f"{rec_p.timings['device_compute']:.6f} s")
 
 
 def phase_kernel_staircase(torch, tree_file, fasta_file, ar_dir, tmp, smi):

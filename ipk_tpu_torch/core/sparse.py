@@ -40,13 +40,13 @@ Not ported: the TPU-tuned ``GROUP_SPANS`` and ``SORT_WINDOWS`` knobs and the
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import device as device_mod
+from ..spans import Recorder
 from .dense import NEG_INF, split_tree
 
 __all__ = ["enumerate_sparse", "enumerate_sparse_many", "merge_window_lists",
@@ -516,11 +516,6 @@ def _pack_host(cl: np.ndarray, cr: np.ndarray, *, k: int, bits: int
             | np.asarray(cr, dtype=np.uint64))
 
 
-def _stat_add(stats: Optional[Dict], key: str, value) -> None:
-    if stats is not None:
-        stats[key] = stats.get(key, 0) + value
-
-
 def enumerate_sparse_many(P_all, prefix_all, log_threshold, *, k: int,
                           sigma: int, bits: int, cap: int = 4096,
                           caps: Optional[Dict] = None,
@@ -529,7 +524,7 @@ def enumerate_sparse_many(P_all, prefix_all, log_threshold, *, k: int,
                           combine_budget_bytes: int = 4 << 30,
                           stats: Optional[Dict] = None,
                           device: device_mod.DeviceLike = "cuda",
-                          mesh=None):
+                          mesh=None, recorder: Optional[Recorder] = None):
     """Ghost-batched sparse enumeration (host-facing).
 
     P_all: [G, S, sigma], prefix_all: [G, S+1] (numpy). Returns
@@ -548,11 +543,13 @@ def enumerate_sparse_many(P_all, prefix_all, log_threshold, *, k: int,
     kernel for CUDA tensors, its plain version for CPU tensors); False takes
     :func:`staircase_select_ref` on any device.
 
-    ``stats`` (optional dict) accumulates "redispatches" (chunks re-run
-    because a span cap doubled: probe misses), "final_caps" (the settled
-    per-span caps), "device_compute" (seconds of device work, ended by a
-    synchronize), "transfer" / "transfer_bytes" (device→host copies of the
-    lists) and "pack" (host key packing).
+    ``stats`` (optional dict) gains "redispatches" (chunks re-run because a
+    span cap doubled: probe misses) and "final_caps" (the settled per-span
+    caps). ``recorder`` (optional ``spans.Recorder``) gains
+    "device_compute" (the device's time for each chunk's enumeration, a
+    ``stage1.batch`` span ended by a synchronize), "transfer" (the device's
+    time for the device→host copies of the lists), "transfer_bytes" and
+    "pack" (host key packing).
     """
     if bits * (k - k // 2) > 32:
         # mid-span codes must fit 32 bits; AA k=13 would need 35 (and 65-bit
@@ -578,15 +575,15 @@ def enumerate_sparse_many(P_all, prefix_all, log_threshold, *, k: int,
     per_ghost = W * top_cap * 48
     ghost_chunk = max(1, min(G, combine_budget_bytes // max(1, per_ghost)))
     start_caps = caps
+    rec = recorder if recorder is not None else Recorder()
 
     def run(g0: int, g1: int, caps_: Dict):
-        t0 = time.monotonic()
-        pend = enumerate_pairs_deferred(
-            P_all[g0:g1], prefix_all[g0:g1], log_threshold, k=k,
-            sigma=sigma, bits=bits, caps=caps_, use_kernel=use_kernel,
-            mesh=mesh, device=dev)
-        device_mod.synchronize(dev)
-        _stat_add(stats, "device_compute", time.monotonic() - t0)
+        with rec.span("stage1.batch", key="device_compute", device=dev):
+            pend = enumerate_pairs_deferred(
+                P_all[g0:g1], prefix_all[g0:g1], log_threshold, k=k,
+                sigma=sigma, bits=bits, caps=caps_, use_kernel=use_kernel,
+                mesh=mesh, device=dev)
+            device_mod.synchronize(dev)
         return pend
 
     out_c, out_s = [], []
@@ -600,19 +597,17 @@ def enumerate_sparse_many(P_all, prefix_all, log_threshold, *, k: int,
                                                   mesh=mesh)
             if done:
                 break
-            _stat_add(stats, "redispatches", 1)
+            if stats is not None:
+                stats["redispatches"] = stats.get("redispatches", 0) + 1
             pend = run(g0, g1, caps)
         cl, cr, scores, ovf = result
-        t0 = time.monotonic()
-        cl, cr, scores = (t.cpu().numpy() for t in (cl, cr, scores))
-        _stat_add(stats, "transfer", time.monotonic() - t0)
-        _stat_add(stats, "transfer_bytes",
-                  cl.nbytes + cr.nbytes + scores.nbytes)
+        with rec.span("transfer", device=dev):
+            cl, cr, scores = (t.cpu().numpy() for t in (cl, cr, scores))
+        rec.add("transfer_bytes", cl.nbytes + cr.nbytes + scores.nbytes)
         del pend, result
-        t0 = time.monotonic()
-        out_c.append(_pack_host(cl, cr, k=k, bits=bits))
-        out_s.append(np.asarray(scores, dtype=np.float32))
-        _stat_add(stats, "pack", time.monotonic() - t0)
+        with rec.span("pack"):
+            out_c.append(_pack_host(cl, cr, k=k, bits=bits))
+            out_s.append(np.asarray(scores, dtype=np.float32))
         overflow[g0:g1] = ovf
     if stats is not None:
         stats["final_caps"] = dict(caps)

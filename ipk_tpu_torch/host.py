@@ -29,6 +29,7 @@ from .core.filter import (RandomFilterStream, _load_native,
                           mif0_filter_values_entries, score_threshold)
 from .db import PhyloKmerDB
 from .seq import SeqTraits, dense_index_to_key
+from .spans import Recorder
 from .utils.threads import host_threads
 
 __all__ = ["log_threshold_f32", "pick_key_batches", "BuildResult"]
@@ -94,27 +95,35 @@ class _Progress:
 
 
 class BuildResult:
-    """The database, the explored-tuple count, the stage timings and, for a
-    sparse build, its telemetry in ``stats`` ("redispatches",
-    "final_caps", and "merge": "device", "host" or "host, after a bin
-    overflow")."""
+    """The database, the explored-tuple count, the stage timings and the
+    spans they were summed from (``spans.Recorder``'s ``timings`` and
+    ``spans``) and, for a sparse build, its telemetry in ``stats``
+    ("redispatches", "final_caps", and "merge": "device", "host" or "host,
+    after a bin overflow")."""
 
     def __init__(self, db: PhyloKmerDB, num_explored: int,
-                 timings: Dict[str, float], stats: Optional[Dict] = None):
+                 timings: Dict[str, float], stats: Optional[Dict] = None,
+                 spans: Optional[list] = None):
         self.db = db
         self.num_explored = num_explored
         self.timings = timings
         self.stats = stats if stats is not None else {}
+        self.spans = spans if spans is not None else []
 
 
-def _prefetch(gen: Iterator, depth: int = 1) -> Iterator:
+def _prefetch(gen: Iterator, recorder: Recorder,
+              depth: int = 1) -> Iterator:
     """Run the batch generator one step ahead in a worker thread, so the next
     batch's device work and device→host copy overlap the main thread's
-    extraction of the current one."""
+    extraction of the current one. The worker's spans name the consumer's
+    span open at the call as their parent; each wait for the next batch is
+    a ``wait_stage1`` span."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     sentinel = object()
+    parent = recorder.current()
 
     def worker():
+        recorder.adopt(parent)
         try:
             for item in gen:
                 q.put(item)
@@ -124,7 +133,8 @@ def _prefetch(gen: Iterator, depth: int = 1) -> Iterator:
 
     threading.Thread(target=worker, daemon=True).start()
     while True:
-        item = q.get()
+        with recorder.span("wait_stage1"):
+            item = q.get()
         if item is sentinel:
             return
         if isinstance(item, BaseException):
@@ -132,11 +142,29 @@ def _prefetch(gen: Iterator, depth: int = 1) -> Iterator:
         yield item
 
 
+def _filter_values(scores: np.ndarray, offsets: np.ndarray,
+                   total_num_groups: int, threshold: float, filter_type: str,
+                   rng_stream: Optional[RandomFilterStream],
+                   recorder: Recorder) -> np.ndarray:
+    """The f64 filter value of each key whose entries' scores lie at
+    ``scores[offsets[i]:offsets[i+1]]``: mif0 (a ``mif0`` span) or random."""
+    n = len(offsets) - 1
+    if filter_type == "mif0":
+        with recorder.span("mif0"):
+            return mif0_filter_values_entries(scores, None, n,
+                                              total_num_groups, threshold,
+                                              offsets=offsets)
+    if filter_type == "random":
+        return rng_stream.take(n).astype(np.float64)
+    raise RuntimeError("Error: Unsupported filter type.")
+
+
 def _extract_batch(A: np.ndarray, lo: int, pos: Optional[np.ndarray],
                    group_ids: List[int], k: int, traits: SeqTraits,
                    total_num_groups: int, threshold: float,
                    filter_type: str, rng_stream: Optional[RandomFilterStream],
-                   merge_branches: bool, fv_override=None):
+                   merge_branches: bool, *, recorder: Recorder,
+                   fv_override=None):
     """Dense batch A[B, chunk] → (keys, fv, counts, branches, scores,
     positions). ``fv_override`` holds the distributed f32 filter values per
     dense key index (``--device-mi``)."""
@@ -164,16 +192,11 @@ def _extract_batch(A: np.ndarray, lo: int, pos: Optional[np.ndarray],
 
     if fv_override is not None:
         fv = fv_override[cols + lo].astype(np.float64)
-    elif filter_type == "mif0":
+    else:
         offsets = np.zeros(len(cols) + 1, dtype=np.int64)
         np.cumsum(counts, out=offsets[1:])
-        fv = mif0_filter_values_entries(scores, None, len(cols),
-                                        total_num_groups, threshold,
-                                        offsets=offsets)
-    elif filter_type == "random":
-        fv = rng_stream.take(len(cols)).astype(np.float64)
-    else:
-        raise RuntimeError("Error: Unsupported filter type.")
+        fv = _filter_values(scores, offsets, total_num_groups, threshold,
+                            filter_type, rng_stream, recorder)
     return keys, fv, counts, branches, scores, positions
 
 
@@ -182,7 +205,7 @@ def _extract_compact(flat_idx: np.ndarray, scores: np.ndarray, B: int,
                      traits: SeqTraits, total_num_groups: int,
                      threshold: float, filter_type: str,
                      rng_stream: Optional[RandomFilterStream],
-                     merge_branches: bool):
+                     merge_branches: bool, *, recorder: Recorder):
     """Compacted batch → unsorted DB arrays (same contract as
     :func:`_extract_batch`). flat_idx is row-major over the TRANSPOSED
     accumulator [chunk, B]: ascending flat index is already key-major with
@@ -209,21 +232,15 @@ def _extract_compact(flat_idx: np.ndarray, scores: np.ndarray, B: int,
     counts = np.diff(offsets)
     branches = np.asarray(group_ids, dtype=np.uint32)[b_rows]
 
-    if filter_type == "mif0":
-        fv = mif0_filter_values_entries(scores, None, len(uniq),
-                                        total_num_groups, threshold,
-                                        offsets=offsets)
-    elif filter_type == "random":
-        fv = rng_stream.take(len(uniq)).astype(np.float64)
-    else:
-        raise RuntimeError("Error: Unsupported filter type.")
+    fv = _filter_values(scores, offsets, total_num_groups, threshold,
+                        filter_type, rng_stream, recorder)
     return keys, fv, counts, branches, np.asarray(scores, np.float32), None
 
 
 def _extract_from_lists(per_branch, group_ids, total_num_groups: int,
                         threshold: float, filter_type: str,
                         rng_stream: Optional[RandomFilterStream],
-                        merge_branches: bool):
+                        merge_branches: bool, *, recorder: Recorder):
     """Per-branch sparse lists → unsorted DB arrays (keys, fv, counts,
     branches, scores, positions=None). Entry order per key = group order."""
     if not per_branch:
@@ -240,14 +257,15 @@ def _extract_from_lists(per_branch, group_ids, total_num_groups: int,
                                         all_border[order])
     return _extract_sorted_stream(all_keys, all_border, all_scores,
                                   group_ids, total_num_groups, threshold,
-                                  filter_type, rng_stream, merge_branches)
+                                  filter_type, rng_stream, merge_branches,
+                                  recorder=recorder)
 
 
 def _extract_sorted_stream(all_keys, all_border, all_scores, group_ids,
                            total_num_groups: int, threshold: float,
                            filter_type: str,
                            rng_stream: Optional[RandomFilterStream],
-                           merge_branches: bool):
+                           merge_branches: bool, *, recorder: Recorder):
     """(key, group)-sorted entry stream (per-pair max scores) → unsorted DB
     arrays."""
     if merge_branches:
@@ -267,14 +285,8 @@ def _extract_sorted_stream(all_keys, all_border, all_scores, group_ids,
     counts = np.diff(offsets)
     branches = np.asarray(group_ids, dtype=np.uint32)[all_border]
 
-    if filter_type == "mif0":
-        fv = mif0_filter_values_entries(all_scores, None, len(keys),
-                                        total_num_groups, threshold,
-                                        offsets=offsets)
-    elif filter_type == "random":
-        fv = rng_stream.take(len(keys)).astype(np.float64)
-    else:
-        raise RuntimeError("Error: Unsupported filter type.")
+    fv = _filter_values(all_scores, offsets, total_num_groups, threshold,
+                        filter_type, rng_stream, recorder)
     return keys, fv, counts, branches, np.asarray(all_scores, np.float32), None
 
 

@@ -518,7 +518,7 @@ def test_positions_earliest_window_tiebreak():
     batches = list(torch_builder._enumerate_batches(
         P, best_score_prefix(P), k=2, sigma=4,
         eps=torch_builder.log_threshold_f32(0.9, 4, 2), ghosts_per_group=2,
-        key_batches=1, device=torch.device("cpu"), stats={},
+        key_batches=1, device=torch.device("cpu"),
         keep_positions=True))
     tag, lo, A, pos, count = batches[0]
     assert tag == "dense" and pos.dtype == np.int32
