@@ -20,6 +20,13 @@ nvidia-smi. Imports nothing of JAX. Every phase raises on failure:
                each of those main-path launches a "[main path]" line with
                the kernel's time, its time without the explored count (the
                count's share), the bound, and the card;
+             * extract_columns against extract_columns_ref at each of those
+               key batches' accumulators A [510, 16384] (combine_max and
+               group_max on the card): counts, branches and score bits
+               equal, float64 filter values within 1e-12 of max(|fv|, the
+               median |fv|) (CUDA's exp10 and log2 against the host's
+               libm); a "[main path]" line with both passes' time, the
+               column pass's, the bound and the plain version's time;
              * staircase_select against staircase_select_ref at the shapes
                of tests/test_staircase_kernels.py with sort_l on and off,
                sign-bit codes with ±0.0 and tied scores, an overflowing
@@ -113,7 +120,8 @@ nvidia-smi. Imports nothing of JAX. Every phase raises on failure:
 The synthetic projects are written by this script's own make_project,
 with ipk_tpu_torch's modules (the same files as the repository's test
 fixtures write). Kernel launch counts are reset just before each main path
-and read just after it: phases 4-5 (the dense path: combine_max), 6-7
+and read just after it: phases 4-5 (the dense path: combine_max and
+extract_columns, which phases 9 and 12 must launch too), 6-7
 (the sparse path: staircase_select), 8 (positions:
 combine_max_with_positions), 9 (on-disk: combine_max and
 staircase_select), 11 (builds from native-AR posteriors: combine_max), 12
@@ -150,7 +158,8 @@ POS_MID = dict(k=8, omega=1.5)
 READS = dict(n=100_000, length=150, subst=0.05, seed=21, check=2000)
 #: the phase-11 optimizer steps of --ar native --ar-optimize
 AR_OPT_STEPS = 30
-KERNELS = ("combine_max", "combine_max_with_positions", "staircase_select")
+KERNELS = ("combine_max", "combine_max_with_positions", "staircase_select",
+           "extract_columns")
 #: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): device
 #: memory bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -432,11 +441,70 @@ def compare_kernel(torch, label, L, R, eps, reps=5, plain_reps=2):
                 bound_by=bound_by)
 
 
+def compare_extract(torch, label, A, gids, total_num_groups, threshold,
+                    reps=5):
+    """extract_columns on the card against its plain version on the CPU at
+    one key batch's A: counts, branches and score bits equal, fv within
+    1e-12 of max(|fv|, the median |fv|) of the plain version's (the host
+    mif0); raises otherwise. Times: both passes with the read of the entry
+    total between (CUDA events, mean of ``reps``), the column pass alone
+    (its ``mif0`` span), and the plain version (host clock, one call)."""
+    import numpy as np
+    from ipk_tpu_torch.core import kernels
+    from ipk_tpu_torch.core.dense import extract_columns_ref
+    from ipk_tpu_torch.spans import Recorder
+    opts = dict(total_num_groups=total_num_groups, threshold=threshold)
+    counts, fv, br, sc = (t.cpu() for t in kernels.extract_columns(
+        A, gids, **opts))
+    A_cpu = A.cpu()
+    t0 = time.perf_counter()
+    ref = extract_columns_ref(A_cpu, gids.cpu(), **opts)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    live = (ref[0] > 0).numpy()
+    fv_h = ref[1].numpy()[live]
+    gap = np.abs(fv.numpy()[live] - fv_h)
+    scale = np.maximum(np.abs(fv_h), np.median(np.abs(fv_h)))
+    rel = float((gap / scale).max()) if live.any() else 0.0
+    flips = int((fv.numpy()[live].astype(np.float32)
+                 != fv_h.astype(np.float32)).sum())
+    if not (torch.equal(counts, ref[0]) and torch.equal(br, ref[2])
+            and torch.equal(sc.view(torch.int32), ref[3].view(torch.int32))
+            and rel <= 1e-12):
+        raise RuntimeError(
+            f"[kernel] {label}: extract_columns differs from its plain "
+            f"version (counts {torch.equal(counts, ref[0])}, branches "
+            f"{torch.equal(br, ref[2])}, scores "
+            f"{torch.equal(sc.view(torch.int32), ref[3].view(torch.int32))}, "
+            f"largest fv gap {rel:.3e} of the scale)")
+    ms = time_ms(torch, lambda: kernels.extract_columns(A, gids, **opts),
+                 reps)
+    rec = Recorder()
+    for _ in range(reps):
+        kernels.extract_columns(A, gids, recorder=rec, **opts)
+    column_ms = rec.timings["mif0"] / reps * 1e3
+    B, chunk = A.shape
+    entries = len(sc)
+    bytes_moved = 4 * B * chunk + 8 * entries + (4 + 8 + 8) * chunk + 8
+    bound_ms, bound_by = bound(bytes_moved, 0)
+    log(f"[kernel] {label}: A [{B}, {chunk}], {entries} entries; counts, "
+        f"branches and scores bit-equal, fv within {rel:.3e} of the scale "
+        f"(f32 fv differs in {flips} of {int(live.sum())} keys); kernel "
+        f"{ms:.4f} ms (column pass {column_ms:.4f} ms), plain {plain_ms:.1f} "
+        f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=float(gap.max(initial=0.0)), max_rel_fv=rel,
+                ms=ms, column_ms=column_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, entries=entries,
+                f32_flips=flips)
+
+
 def phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir, smi):
     import numpy as np
     from ipk_tpu_torch.builder import (choose_key_batches, stage1_inputs,
                                        stage1_state)
-    from ipk_tpu_torch.core.dense import best_score_prefix, masked_halves
+    from ipk_tpu_torch.core import kernels
+    from ipk_tpu_torch.core.dense import (best_score_prefix, group_max,
+                                          masked_halves)
+    from ipk_tpu_torch.core.filter import score_threshold
     from ipk_tpu_torch.pipeline import BuildParams, prepare
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -475,7 +543,11 @@ def phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir, smi):
     nl, nr = L.shape[2], R.shape[2]
     key_batches = choose_key_batches(len(s1.group_ids), nl, nr)
     step = nl // key_batches
-    runs = []
+    gids = torch.tensor(s1.group_ids, dtype=torch.int32, device=dev)
+    total_num_groups = inp.original_tree.get_node_count()
+    threshold = score_threshold(SCALE["omega"], inp.traits.alphabet_size,
+                                SCALE["k"])
+    runs, extracts = [], []
     for b in range(key_batches):
         Lb = L[:, :, b * step:(b + 1) * step].contiguous()
         label = f"DNA k=8 scale project, key batch {b + 1}/{key_batches}"
@@ -490,7 +562,21 @@ def phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir, smi):
             f"kernel; it is no separate launch); bound "
             f"{run['bound_ms']:.4f} ms ({run['bound_by']}), kernel at "
             f"{100 * run['bound_ms'] / run['ms']:.1f}% of it; {smi}")
-        del Lb
+        A_g, _ = kernels.combine_max(Lb, R, eps)
+        A = group_max(A_g.reshape(A_g.shape[0], -1), s1.ghosts_per_group)
+        del A_g, Lb
+        ext = compare_extract(torch, label, A, gids, total_num_groups,
+                              threshold)
+        extracts.append(ext)
+        log(f"[main path] extract_columns, {label}: A {tuple(A.shape)}: "
+            f"kernel {ext['ms']:.4f} ms (CUDA events, mean of 5 after a "
+            f"warm-up, both passes and the entry-total read between), "
+            f"column pass (mif0) {ext['column_ms']:.4f} ms; bound "
+            f"{ext['bound_ms']:.4f} ms ({ext['bound_by']}: A read once, 8 B "
+            f"an entry written), kernel at "
+            f"{100 * ext['bound_ms'] / ext['ms']:.1f}% of it; plain "
+            f"{ext['plain_ms']:.1f} ms; {smi}")
+        del A
     del L, R
     torch.cuda.empty_cache()
     res = dict(max_abs_err=max(r["max_abs_err"] for r in runs),
@@ -501,7 +587,14 @@ def phase_kernel(torch, tmp, tree_file, fasta_file, ar_dir, smi):
                uncounted_ms=sum(r["uncounted_ms"] for r in runs)
                / key_batches,
                tuples=sum(r["tuples"] for r in runs),
-               s1=s1, total_num_groups=inp.original_tree.get_node_count())
+               s1=s1, total_num_groups=total_num_groups,
+               extract=dict(
+                   max_abs_err=max(e["max_abs_err"] for e in extracts),
+                   max_rel_fv=max(e["max_rel_fv"] for e in extracts),
+                   f32_flips=sum(e["f32_flips"] for e in extracts),
+                   **{key: sum(e[key] for e in extracts) / key_batches
+                      for key in ("ms", "column_ms", "plain_ms",
+                                  "bound_ms")}))
     log(f"[kernel] DNA k=8 scale project: {key_batches} launches per build, "
         f"kernel {res['ms']:.4f} ms per launch, "
         f"{res['ms'] * key_batches:.4f} ms per build; plain "
@@ -973,8 +1066,9 @@ def phase_sparse_scale(torch, tmp, tree_file, fasta_file, ar_dir):
                            "and sparse builds are not byte-identical (or "
                            "empty)")
     log(f"[sparse scale] {MID['num_leaves']} taxa x {MID['width']} sites, "
-        f"DNA k={MID['k']} omega={MID['omega']}: dense (combine_max) and "
-        f"forced-sparse (staircase) builds byte-identical "
+        f"DNA k={MID['k']} omega={MID['omega']}: dense (combine_max, "
+        f"extract_columns) and forced-sparse (staircase, host mif0) builds "
+        f"byte-identical "
         f"({r_dense.db.size()} k-mers, {r_dense.db.num_entries()} entries; "
         f"explored dense {r_dense.num_explored}, sparse "
         f"{r_sparse.num_explored}); wall dense {t_dense:.3f} s, sparse "
@@ -1966,11 +2060,14 @@ def main() -> int:
             f"wall "
             f"{walls['multi-rank B']:.3f} s, per build and rank "
             f"{json.dumps(ranks)}; {smi}")
-        required = [("dense", "combine_max"), ("sparse", "staircase_select"),
+        required = [("dense", "combine_max"), ("dense", "extract_columns"),
+                    ("sparse", "staircase_select"),
                     ("positions", "combine_max_with_positions"),
                     ("on-disk", "combine_max"),
                     ("on-disk", "staircase_select"),
+                    ("on-disk", "extract_columns"),
                     ("native AR", "combine_max"), ("profile", "combine_max"),
+                    ("profile", "extract_columns"),
                     ("multi-rank A", "combine_max"),
                     ("multi-rank A", "staircase_select")]
         missing = [f"{k} on the {p} path" for p, k in required
@@ -2009,6 +2106,19 @@ def main() -> int:
         "max_abs_err": sres["max_abs_err"],
         "ms": sres["ms"], "plain_ms": sres["plain_ms"],
         "bound_ms": sres["bound_ms"], "bound_by": sres["bound_by"],
+        "library_ms": None}, {
+        "name": "extract_columns", "route": "cuda",
+        "source": "ipk_tpu_torch/core/csrc/extract_columns.cu",
+        "replaces": None,
+        "launches": sum(counts[p]["extract_columns"]
+                        for p in ("dense", "on-disk", "native AR", "profile",
+                                  "multi-rank A")),
+        "max_abs_err": kres["extract"]["max_abs_err"],
+        "max_rel_fv": kres["extract"]["max_rel_fv"],
+        "ms": kres["extract"]["ms"],
+        "column_ms": kres["extract"]["column_ms"],
+        "plain_ms": kres["extract"]["plain_ms"],
+        "bound_ms": kres["extract"]["bound_ms"], "bound_by": "bytes",
         "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@
   bound-oracle prefix [G, S+1] and the f32 eps move to the device
   (:func:`stage1_state`); ``dense.masked_halves`` makes the half tensors
   once, and per key batch the ``combine_max`` kernel and ``dense.group_max``
-  make the per-branch accumulator A[B, chunk], whose survivors are compacted
-  on the device so only they cross to the host.
+  make the per-branch accumulator A[B, chunk], which the
+  ``extract_columns`` kernel turns into the batch's database columns and
+  their f64 mif0 values (stage 2 on the device), so only those cross to the
+  host.
 * stage 1, sparse path (σ^k ≥ 2^24: DNA k ≥ 12, AA k ≥ 6, or ``sparse=True``):
   a host probe sizes per-span survivor caps, ``sparse.enumerate_sparse_many``
   builds every window's survivor list on the device (the
@@ -17,7 +19,9 @@
 * ``keep_positions`` (dense path only): the positions mode of the kernel,
   ``combine_max_with_positions``, and ``dense.group_max_with_positions`` keep
   the earliest window of each score; the dense A and pos cross to the host.
-* stage 2: extraction + mif0/random filter (``host``).
+* stage 2: extraction + mif0/random filter (``host``), except for the dense
+  path without positions, which does it on the device; the random filter's
+  values are always drawn on the host, in ascending key order.
 * stage 3: global ascending (fv, key) sort and one streaming write; with
   ``on_disk``, each key batch (or the one sparse part) is sorted and saved
   under ``<working_dir>/hashmaps/``, then ``host._merge_on_disk`` merges them
@@ -51,16 +55,19 @@ from .ar.mapping import gather_ghost_tensor, ghost_groups
 from .core import dense
 from .core import sparse as sparse_mod
 from .core.filter import RandomFilterStream, score_threshold
-from .core.kernels import combine_max, combine_max_with_positions
+from .core.kernels import (combine_max, combine_max_with_positions,
+                           extract_columns)
 from .db import PhyloKmerDB
-from .host import (BuildResult, _extract_batch, _extract_compact,
+# _extract_compact stays a name of this module for portbench/harness.py,
+# whose traced runs wrap it
+from .host import (BuildResult, _extract_batch, _extract_compact,  # noqa: F401
                    _extract_from_lists, _extract_sorted_stream,
                    _merge_on_disk, _prefetch, _Progress, _sort_batch,
                    log_threshold_f32, pick_key_batches)
 from .parallel import key_merge
 from .parallel.build_sharded import pad_ghosts, sharded_batched_build_step
 from .parallel.mesh import make_mesh, world_size
-from .seq import SeqTraits
+from .seq import SeqTraits, dense_index_to_key
 from .spans import Recorder
 from .tree import PhyloTree, to_newick
 from .utils.malloc_tune import retain_heap
@@ -106,9 +113,9 @@ def choose_key_batches(n_groups: int, nl: int, nr: int,
     """The number of key batches a build splits its accumulator into."""
     key_batches = pick_key_batches(n_groups, nl, nr)
     # split big accumulators into a few batches even when memory alone would
-    # not require it, so the next batch's device→host copy overlaps the
-    # current batch's host extraction; positions builds keep the memory
-    # rule alone, as ipk_tpu's do
+    # not require it, so the next batch's device work and copy overlap the
+    # main thread's work on the current batch; positions builds keep the
+    # memory rule alone, as ipk_tpu's do
     if not keep_positions and n_groups * nl * nr * 4 > (16 << 20):
         for cand in (4, 2):
             if key_batches < cand and nl % cand == 0:
@@ -135,25 +142,36 @@ def _enumerate_batches(P_all: np.ndarray, prefix_all: np.ndarray, *,
                        device: torch.device,
                        recorder: Optional[Recorder] = None,
                        keep_positions: bool = False,
-                       mesh=None) -> Iterator[tuple]:
-    """Yield per key batch ("compact", lo, B, chunk, flat_idx, scores,
-    count), ("bitmask", lo, B, chunk, packed, scores, count) or ("dense",
-    lo, A, pos, count); ``count`` is the batch's explored-tuple total
-    (``db_builder.cpp:576-626``). Positions builds always yield ("dense", lo,
-    A, pos, count) with the dense A and pos [B, chunk]; other builds pos None.
+                       mesh=None, group_ids: Optional[List[int]] = None,
+                       filter_args: Optional[tuple] = None
+                       ) -> Iterator[tuple]:
+    """Yield per key batch ("columns", lo, counts, fv, branches, scores,
+    count); ``count`` is the batch's explored-tuple total
+    (``db_builder.cpp:576-626``). Positions builds yield ("dense", lo, A,
+    pos, count) with the dense A and pos [B, chunk] instead.
+
+    A "columns" batch is stage 2 done on the device by ``extract_columns``
+    from A, the ``group_ids`` and ``filter_args`` (the extractors'
+    (total_num_groups, threshold, filter_type, rng_stream, merge_branches),
+    which positions builds do not need):
+    counts [chunk] int32 and, for mif0, fv [chunk] f64 per key column of the
+    batch (else fv None), branches [E] uint32 and scores [E] f32 per entry
+    in the DB's entry order. Each adds 1 to the ``card_extract_batches``
+    counter.
 
     With ``mesh``, ghosts are padded to the branch axis in whole groups,
     each rank combines its slice, and every key batch's A (and pos) is
     gathered and trimmed and its count summed over the ranks, so every rank
     yields the one-device batches (enumeration has no cross-branch
-    arithmetic) and picks the same transfer representation.
+    arithmetic).
 
     ``recorder`` gains ``device_compute`` (the device's time for the halves
     and each batch's work: the ``stage1.halves`` and ``stage1.batch``
-    spans, each ended by a synchronize), ``transfer`` (the device's time for
-    the device→host copies of the batch payloads, made here in the prefetch
-    worker so batch N+1's copy overlaps the main thread's extraction of
-    batch N) and ``transfer_bytes``.
+    spans, each ended by a synchronize; the column pass of
+    ``extract_columns`` is also its ``mif0`` span), ``transfer`` (the
+    device's time for the device→host copies of the batch payloads, made
+    here in the prefetch worker so batch N+1's copy overlaps the main
+    thread's work on batch N) and ``transfer_bytes``.
     """
     rec = recorder if recorder is not None else Recorder()
     hl = k // 2
@@ -171,6 +189,10 @@ def _enumerate_batches(P_all: np.ndarray, prefix_all: np.ndarray, *,
     def total(counts):
         s = counts.sum().reshape(1)
         return int(s if mesh is None else mesh.all_reduce(s, "branch"))
+
+    if not keep_positions:
+        gid_t = torch.tensor(group_ids, dtype=torch.int32, device=device)
+        total_num_groups, threshold, filter_type, _, merge = filter_args
 
     with rec.span("stage1.halves", key="device_compute", device=device):
         P, prefix, eps_t = stage1_state(P_all, prefix_all, eps, device)
@@ -191,7 +213,7 @@ def _enumerate_batches(P_all: np.ndarray, prefix_all: np.ndarray, *,
                     A_g.reshape(G, -1), pos_g.reshape(G, -1),
                     ghosts_per_group)
                 del A_g, pos_g
-                rep, payload = "positions", (gather(A), gather(pos))
+                payload = (gather(A), gather(pos))
                 del pos
             else:
                 A_g, cnt = combine_max(Lb, R, eps_t)
@@ -199,56 +221,26 @@ def _enumerate_batches(P_all: np.ndarray, prefix_all: np.ndarray, *,
                 A = gather(dense.group_max(A_g.reshape(A_g.shape[0], -1),
                                            ghosts_per_group))
                 del A_g
-                rep = _transfer_rep(A)
-                if rep == "dense":
-                    payload = (A,)
-                else:
-                    # both compacted forms flatten the TRANSPOSED
-                    # accumulator: row-major order over [chunk, B] is
-                    # key-major with groups ascending within a key — the
-                    # DB's entry order, so the host needs no sort
-                    AT = A.t().contiguous()
-                    survivors = (dense.bitmask_survivors if rep == "bitmask"
-                                 else dense.compact_survivors)
-                    packed_dev, sc_dev, _ = survivors(AT)
-                    del AT
-                    payload = (packed_dev, sc_dev)
+                payload = extract_columns(
+                    A, gid_t, total_num_groups=total_num_groups,
+                    threshold=threshold, mif0=filter_type == "mif0",
+                    merge_branches=merge, recorder=rec)
+                rec.add("card_extract_batches", 1)
                 del A
             count = total(cnt)
             device_mod.synchronize(device)
         with rec.span("transfer", device=device):
-            arrays = [t.cpu().numpy() for t in payload]
-        rec.add("transfer_bytes", sum(a.nbytes for a in arrays))
+            arrays = [None if t is None else t.cpu().numpy()
+                      for t in payload]
+        rec.add("transfer_bytes",
+                sum(a.nbytes for a in arrays if a is not None))
         del payload
-        if rep == "positions":
+        if keep_positions:
             yield ("dense", lo, arrays[0], arrays[1], count)
-        elif rep == "dense":
-            yield ("dense", lo, arrays[0], None, count)
         else:
-            yield (rep if rep == "bitmask" else "compact", lo, B0, step * nr,
-                   arrays[0], arrays[1], count)
-
-
-def _transfer_rep(A: torch.Tensor) -> str:
-    """The transfer representation of a batch's accumulator A, whichever
-    costs the fewest bytes at its survivor density (``IPK_TPU_TRANSFER``
-    forces one):
-
-    * "idx", compact (idx, score):  8 B/survivor
-    * "bitmask", bitmask + packed scores:  cells/8 + 4 B/survivor
-    * "dense", the raw tensor:  4 B/cell
-    """
-    rep = os.environ.get("IPK_TPU_TRANSFER", "auto")
-    if rep != "auto":
-        return rep
-    n_surv = int(torch.isfinite(A).sum())
-    cells = A.numel()
-    idx_bytes = 8 * n_surv
-    bm_bytes = cells // 8 + 4 * n_surv
-    dense_bytes = 4 * cells
-    return ("idx" if idx_bytes <= min(bm_bytes, dense_bytes)
-            else "bitmask" if bm_bytes < dense_bytes
-            else "dense")
+            counts, fv, branches, scores = arrays
+            yield ("columns", lo, counts, fv, branches.view(np.uint32),
+                   scores, count)
 
 
 def _enumerate_sparse_branches(P_all: np.ndarray, prefix_all: np.ndarray, *,
@@ -472,9 +464,10 @@ def build(original_tree: PhyloTree,
     ``spans.Recorder`` when None), whose ``timings`` and ``spans`` the
     result carries: the ``build`` span and under it ``computation``
     (``stage1_inputs``, the prefetch worker's ``stage1.*`` and ``transfer``,
-    ``wait_stage1``, ``host_extract`` with ``unpack`` and ``extract``, and
-    ``mif0`` under that) and ``filter_merge`` (``sort`` with ``concat``,
-    ``serialize``)."""
+    with the device's ``mif0`` span and the ``card_extract_batches`` counter
+    on the dense path without positions, ``wait_stage1``, ``host_extract``
+    with ``extract``, and ``mif0`` under that, on the others) and
+    ``filter_merge`` (``sort`` with ``concat``, ``serialize``)."""
     retain_heap()
     sigma = traits.alphabet_size
     if kmer_size > traits.max_kmer_length:
@@ -608,7 +601,8 @@ def build(original_tree: PhyloTree,
                         s1.P_all, s1.prefix_all, k=kmer_size, sigma=sigma,
                         eps=s1.eps, ghosts_per_group=s1.ghosts_per_group,
                         key_batches=key_batches, device=dev, recorder=rec,
-                        keep_positions=keep_positions, mesh=mesh)
+                        keep_positions=keep_positions, mesh=mesh,
+                        group_ids=group_ids, filter_args=filter_args)
 
                 # ---- stages 2+3 -------------------------------------------
                 bar = _Progress("Computing phylo-k-mers", key_batches,
@@ -659,24 +653,37 @@ def _extract_part(batch: tuple, group_ids: List[int], k: int,
                   recorder: Recorder) -> tuple:
     """Stage 2 of one dense-path batch: its unsorted DB arrays.
     ``filter_args`` are the extractors' (total_num_groups, threshold,
-    filter_type, rng_stream, merge_branches). A bitmask batch is first
-    unpacked to flat indices (an ``unpack`` span); the extraction and its
-    filter are an ``extract`` span."""
-    if batch[0] == "dense":
-        _, lo, A, pos, _ = batch
-        with recorder.span("extract"):
-            return _extract_batch(A, lo, pos, group_ids, k, traits,
-                                  *filter_args, recorder=recorder,
-                                  fv_override=fv_override)
-    _, lo, B, chunk, flat_idx, scores, _ = batch
-    if batch[0] == "bitmask":
-        with recorder.span("unpack"):
-            # unpackbits is MSB-first, matching the device packer
-            flat = np.unpackbits(flat_idx)[:B * chunk]
-            flat_idx = np.flatnonzero(flat).astype(np.int32)
+    filter_type, rng_stream, merge_branches). A "columns" batch only gets
+    its keys and, under the random filter, its values; a "dense" batch
+    (positions, ``--device-mi``) is extracted and filtered in an
+    ``extract`` span."""
+    if batch[0] == "columns":
+        return _finish_columns(batch, k, traits, filter_args)
+    _, lo, A, pos, _ = batch
     with recorder.span("extract"):
-        return _extract_compact(flat_idx, scores, B, chunk, lo, group_ids,
-                                k, traits, *filter_args, recorder=recorder)
+        return _extract_batch(A, lo, pos, group_ids, k, traits,
+                              *filter_args, recorder=recorder,
+                              fv_override=fv_override)
+
+
+def _finish_columns(batch: tuple, k: int, traits: SeqTraits,
+                    filter_args: tuple) -> tuple:
+    """A "columns" batch's unsorted DB arrays (keys, fv, counts, branches,
+    scores, None), the contract of the host extractors: the keys of its
+    live columns, their counts and filter values (mif0 from the device,
+    random drawn here in ascending key order), the entries as they came."""
+    _, lo, counts, fv, branches, scores, _ = batch
+    _, _, filter_type, rng_stream, _ = filter_args
+    cols = np.flatnonzero(counts)
+    keys = dense_index_to_key(cols.astype(np.uint64) + np.uint64(lo), k,
+                              traits)
+    if fv is not None:
+        fv = fv[cols]
+    elif filter_type == "random":
+        fv = rng_stream.take(len(cols)).astype(np.float64)
+    else:
+        raise RuntimeError("Error: Unsupported filter type.")
+    return keys, fv, counts[cols].astype(np.int64), branches, scores, None
 
 
 def _concatenate_parts(parts: list) -> tuple:

@@ -136,6 +136,13 @@ def load() -> ctypes.CDLL:
         lib.ipk_staircase_select_stages.restype = ctypes.c_int
         lib.ipk_staircase_scratch_bytes.argtypes = [ll, ll, ll, ctypes.c_int]
         lib.ipk_staircase_scratch_bytes.restype = ll
+        lib.ipk_extract_columns.argtypes = [
+            vp, ll, ll, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+            ctypes.c_int, ctypes.c_int, vp, vp, vp, ctypes.c_int, vp]
+        lib.ipk_extract_columns.restype = ctypes.c_int
+        lib.ipk_extract_emit.argtypes = [
+            vp, vp, ll, ll, ctypes.c_int, vp, vp, vp, ctypes.c_int, vp]
+        lib.ipk_extract_emit.restype = ctypes.c_int
         lib.ipk_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ipk_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

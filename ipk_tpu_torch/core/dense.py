@@ -8,6 +8,8 @@ thresholds; the top level factorises into two masked half tensors
 over windows, is the per-ghost accumulator (``combine_max_ref`` here, the CUDA
 kernel ``core.kernels.combine_max`` on the GPU; with the best window of each
 cell, ``combine_max_with_positions_ref`` and its kernel mode).
+``extract_columns_ref`` is the plain version of the ``extract_columns``
+kernel, which turns a key batch's accumulator into database columns.
 
 What must stay exactly as in the reference for bit-equal results:
 
@@ -22,21 +24,20 @@ JAX's ``vmap`` over ghosts is the leading dimension G written out.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .filter import mif0_filter_values_entries
+
 __all__ = ["split_tree", "best_score_prefix", "masked_span_scores",
            "masked_halves", "combine_max_ref", "count_explored_sorted",
            "combine_max_with_positions_ref", "group_max",
-           "group_max_with_positions", "compact_survivors",
-           "bitmask_survivors"]
+           "group_max_with_positions", "extract_columns_ref"]
 
 NEG_INF = float("-inf")
-
-#: flat survivor indices cross to the host as int32
-_INDEX_LIMIT = 1 << 31
 
 
 def split_tree(k: int) -> List[Tuple[int, int]]:
@@ -276,36 +277,46 @@ def group_max_with_positions(A_ghost: torch.Tensor, pos_ghost: torch.Tensor,
     return best_A, best_pos
 
 
-def _check_index_range(A: torch.Tensor, name: str) -> None:
-    if A.numel() >= _INDEX_LIMIT:
-        raise ValueError(
-            f"{name}: accumulator batch of {A.numel()} elements exceeds the "
-            "int32 index range; increase key_batches")
+def extract_columns_ref(A: torch.Tensor, group_ids: torch.Tensor, *,
+                        total_num_groups: int, threshold: float,
+                        mif0: bool = True, merge_branches: bool = False,
+                        recorder=None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                   torch.Tensor, torch.Tensor]:
+    """Plain version of the ``extract_columns`` kernel, on CPU tensors.
 
-
-def compact_survivors(A: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Survivors of A in row-major order: (flat int32 indices, f32 scores,
-    count), still on A's device."""
-    _check_index_range(A, "compact_survivors")
-    flat = A.reshape(-1)
-    idx = torch.nonzero(torch.isfinite(flat)).reshape(-1)
-    return idx.to(torch.int32), flat[idx], int(idx.numel())
-
-
-def bitmask_survivors(A: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Survivors of A as (packed membership bitmask, f32 scores in flat
-    order, count), still on A's device. The bitmask is one bit per cell,
-    MSB-first, so ``np.unpackbits`` restores it."""
-    _check_index_range(A, "bitmask_survivors")
-    flat = A.reshape(-1)
-    mask = torch.isfinite(flat)
-    pad = (-flat.numel()) % 8
-    bits = torch.cat([mask, mask.new_zeros(pad)]).reshape(-1, 8)
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
-                           device=A.device)
-    packed = (bits.to(torch.uint8) * weights).sum(dim=1,
-                                                  dtype=torch.uint8)
-    idx = torch.nonzero(mask).reshape(-1)
-    return packed, flat[idx], int(idx.numel())
+    A: [B, chunk] f32 (group rows, key columns, -inf where pruned);
+    group_ids: [B] int32. Returns (counts [chunk] int32, fv [chunk] float64
+    or None, branches [E] int32, scores [E] float32): each column's entry
+    count and, with ``mif0``, its mif0 value (0 where dead), from the host
+    filter the host extraction calls (``core.filter``'s
+    ``mif0_filter_values_entries``, a ``mif0`` span of ``recorder``); the
+    entries key-major, groups ascending within a key. ``merge_branches``
+    keeps each column's first strict maximum (ties to the lowest row), as
+    the host extraction's lexsort does.
+    """
+    mask = torch.isfinite(A)
+    if merge_branches:
+        top = A.amax(dim=0)
+        first = (A == top).to(torch.uint8).argmax(dim=0)
+        cols = torch.nonzero(mask.any(dim=0)).reshape(-1)
+        mask = torch.zeros_like(mask)
+        mask[first[cols], cols] = True
+    counts = mask.sum(dim=0, dtype=torch.int32)
+    col, row = torch.nonzero(mask.t(), as_tuple=True)
+    branches, scores = group_ids[row], A[row, col]
+    fv = None
+    if mif0:
+        span = (recorder.span("mif0") if recorder is not None
+                else contextlib.nullcontext())
+        with span:
+            cnt = counts.numpy()
+            live = cnt > 0
+            offsets = np.zeros(int(live.sum()) + 1, dtype=np.int64)
+            np.cumsum(cnt[live], out=offsets[1:])
+            fv_np = np.zeros(len(cnt), dtype=np.float64)
+            fv_np[live] = mif0_filter_values_entries(
+                scores.numpy(), None, len(offsets) - 1, total_num_groups,
+                threshold, offsets=offsets)
+        fv = torch.from_numpy(fv_np)
+    return counts, fv, branches, scores

@@ -11,15 +11,19 @@ the kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .dense import combine_max_ref, combine_max_with_positions_ref
+from .dense import (combine_max_ref, combine_max_with_positions_ref,
+                    extract_columns_ref)
 
-__all__ = ["combine_max", "combine_max_with_positions", "staircase_select"]
+__all__ = ["combine_max", "combine_max_with_positions", "staircase_select",
+           "extract_columns"]
 
 
 def _check_eps(eps: torch.Tensor) -> float:
@@ -203,3 +207,81 @@ def staircase_select(sL: torch.Tensor, cL: torch.Tensor, sR: torch.Tensor,
 
 
 staircase_select.launches = 0
+
+
+def extract_columns(A: torch.Tensor, group_ids: torch.Tensor, *,
+                    total_num_groups: int, threshold: float,
+                    mif0: bool = True, merge_branches: bool = False,
+                    recorder=None
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                               torch.Tensor, torch.Tensor]:
+    """A key batch's accumulator as finished database columns.
+
+    A: [B, chunk] float32 (group rows, key columns; -inf where pruned);
+    group_ids: [B] int32, the branch id of each row, on A's device.
+    Returns, on that device, (counts [chunk] int32, fv [chunk] float64 or
+    None, branches [E] int32, scores [E] float32): per key column its entry
+    count and, with ``mif0``, its mif0 value over those entries
+    (``total_num_groups`` N and the linear ``threshold``; 0 where the column
+    is dead); per entry its group id (the uint32 bits) and A's score,
+    key-major with groups ascending within a key. ``merge_branches`` keeps
+    each column's first strict maximum only. With a ``recorder`` the column
+    pass that computes fv is its ``mif0`` span.
+
+    CPU tensors go to :func:`dense.extract_columns_ref`; CUDA tensors to
+    the kernel in ``csrc/extract_columns.cu``: the column pass and the scan
+    of the counts, then, once the entry total is read, the emit pass. One
+    call counts one launch.
+    """
+    if A.dim() != 2 or group_ids.shape != A.shape[:1]:
+        raise ValueError(f"extract_columns: A {tuple(A.shape)} and group_ids "
+                         f"{tuple(group_ids.shape)} must be [B, chunk] and "
+                         f"[B]")
+    if A.dtype != torch.float32 or group_ids.dtype != torch.int32:
+        raise TypeError(f"extract_columns: A must be float32 and group_ids "
+                        f"int32, got {A.dtype} and {group_ids.dtype}")
+    if A.device != group_ids.device:
+        raise ValueError(f"extract_columns: A on {A.device}, group_ids on "
+                         f"{group_ids.device}")
+    if A.device.type == "cpu":
+        return extract_columns_ref(
+            A, group_ids, total_num_groups=total_num_groups,
+            threshold=threshold, mif0=mif0, merge_branches=merge_branches,
+            recorder=recorder)
+    if A.device.type != "cuda":
+        raise ValueError(f"extract_columns: unsupported device {A.device}")
+    if not (A.is_contiguous() and group_ids.is_contiguous()):
+        raise ValueError("extract_columns: A and group_ids must be "
+                         "contiguous")
+    lib = _build.load()
+    dev = A.device
+    B, chunk = A.shape
+    counts = torch.empty(chunk, dtype=torch.int32, device=dev)
+    fv = torch.empty(chunk, dtype=torch.float64, device=dev) if mif0 else None
+    offsets = torch.empty(chunk + 1, dtype=torch.int64, device=dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    N = float(total_num_groups)
+    span = (recorder.span("mif0", device=dev)
+            if recorder is not None and mif0 else contextlib.nullcontext())
+    with span:
+        rc = lib.ipk_extract_columns(
+            ctypes.c_void_p(A.data_ptr()), B, chunk, N, float(threshold),
+            math.log2(N), int(mif0), int(merge_branches),
+            ctypes.c_void_p(counts.data_ptr()),
+            ctypes.c_void_p(None if fv is None else fv.data_ptr()),
+            ctypes.c_void_p(offsets.data_ptr()), dev.index, stream)
+        _raise_on_launch_error(lib, "extract_columns", rc)
+    n_entries = int(offsets[-1])
+    branches = torch.empty(n_entries, dtype=torch.int32, device=dev)
+    scores = torch.empty(n_entries, dtype=torch.float32, device=dev)
+    rc = lib.ipk_extract_emit(
+        *(ctypes.c_void_p(t.data_ptr()) for t in (A, group_ids)), B, chunk,
+        int(merge_branches), ctypes.c_void_p(offsets.data_ptr()),
+        *(ctypes.c_void_p(t.data_ptr()) for t in (branches, scores)),
+        dev.index, stream)
+    _raise_on_launch_error(lib, "extract_columns", rc)
+    extract_columns.launches += 1
+    return counts, fv, branches, scores
+
+
+extract_columns.launches = 0

@@ -86,8 +86,8 @@ def k12_project(tmp_path_factory):
                                                  seed=12)
 
 
-def build_pair(project, name, monkeypatch, key_batches=None, transfer=None,
-               sparse=False, **overrides):
+def build_pair(project, name, monkeypatch, key_batches=None, sparse=False,
+               **overrides):
     """(ipk_tpu DB path, ipk_tpu_torch DB path) for the same project and
     options; ``sparse`` forces both builders onto the sparse path."""
     tmp, states, k, omega, tree_file, fasta_file, ar_dir = project
@@ -98,8 +98,6 @@ def build_pair(project, name, monkeypatch, key_batches=None, transfer=None,
         for mod in (jax_builder, torch_builder):
             monkeypatch.setattr(mod, "pick_key_batches",
                                 lambda *a, **kw: key_batches)
-    if transfer is not None:
-        monkeypatch.setenv("IPK_TPU_TRANSFER", transfer)
     outs = []
     for tag, params_cls, run, extra in [
             ("jax", JaxParams, jax_build_database, {}),
@@ -121,10 +119,10 @@ def build_pair(project, name, monkeypatch, key_batches=None, transfer=None,
     ("merge", {"merge_branches": True}),
     ("kb2", {"key_batches": 2}),
     ("kb4", {"key_batches": 4}),
-    ("idx", {"transfer": "idx"}),
-    ("bitmask", {"transfer": "bitmask"}),
-    ("dense", {"transfer": "dense"}),
-    ("dense_merge", {"transfer": "dense", "merge_branches": True}),
+    ("kb2_random", {"key_batches": 2, "filter": "random"}),
+    ("kb4_random", {"key_batches": 4, "filter": "random"}),
+    ("kb4_merge", {"key_batches": 4, "merge_branches": True}),
+    ("random_merge", {"filter": "random", "merge_branches": True}),
     ("inner_only", {"ghosts": "inner-only"}),
     ("outer_only", {"ghosts": "outer-only"}),
 ])
@@ -135,7 +133,7 @@ def test_port_matches_jax_build(dna_project, monkeypatch, name, opts):
 
 @pytest.mark.parametrize("name,opts", [
     ("aa_mif0", {}),
-    ("aa_bitmask_merge", {"transfer": "bitmask", "merge_branches": True}),
+    ("aa_merge", {"merge_branches": True}),
     ("aa_outer_only", {"ghosts": "outer-only"}),
 ])
 def test_port_matches_jax_build_amino(aa_project, monkeypatch, name, opts):

@@ -158,37 +158,6 @@ def test_group_max_matches(ghosts):
         np.asarray(jdense.group_max(jnp.asarray(A), ghosts)))
 
 
-@pytest.mark.parametrize("live", [0.0, 0.05, 0.6])
-def test_compact_survivors_matches(live):
-    A = _dense_accumulator(2, live=live).T.copy()
-    idx, sc, n = tdense.compact_survivors(torch.from_numpy(A))
-    idx_j, sc_j = jdense.compact_survivors(jnp.asarray(A))
-    assert idx.dtype == torch.int32 and n == len(idx_j)
-    np.testing.assert_array_equal(idx.numpy(), idx_j)
-    np.testing.assert_array_equal(sc.numpy(), sc_j)
-
-
-@pytest.mark.parametrize("live,K", [(0.0, 48), (0.3, 48), (0.9, 47)])
-def test_bitmask_survivors_matches(live, K):
-    A = _dense_accumulator(3, K=K, live=live).T.copy()
-    packed, sc, n = tdense.bitmask_survivors(torch.from_numpy(A))
-    packed_j, sc_j, n_j = jdense.bitmask_survivors(jnp.asarray(A))
-    assert packed.dtype == torch.uint8 and n == n_j
-    np.testing.assert_array_equal(packed.numpy(), np.asarray(packed_j))
-    np.testing.assert_array_equal(sc.numpy(), np.asarray(sc_j)[:n_j])
-    # MSB-first: np.unpackbits restores the membership
-    flat = np.unpackbits(packed.numpy())[:A.size]
-    np.testing.assert_array_equal(flat.astype(bool), np.isfinite(A).ravel())
-
-
-@pytest.mark.parametrize("fn", [tdense.compact_survivors,
-                                tdense.bitmask_survivors])
-def test_survivor_index_guard(fn):
-    big = torch.zeros(1).expand(1 << 31)     # 2^31 cells, no memory
-    with pytest.raises(ValueError, match="int32 index range"):
-        fn(big)
-
-
 # ---------------------------------------------------------------------------
 # positions (--keep-positions): the earliest window of each cell's maximum
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@ writer of ``BuildResult.timings``.
 
 A small dense build on the CPU returns every stage key; its spans nest as
 the build does (children inside their parents, on their thread or under
-the span that started the prefetch worker); ``host_extract`` is its
-``unpack`` and ``extract`` spans, ``sort`` covers ``concat``, ``untraced``
+the span that started the prefetch worker); stage 2 runs in the prefetch
+worker, its ``mif0`` span inside ``stage1.batch``, and ``host_extract`` only
+makes the keys; ``sort`` covers ``concat``, ``untraced``
 is the self time of the grouping spans; under ``torch.profiler`` the spans
 are ``ipk.*`` events of the Chrome trace, nested as recorded; without a
 profiler no ``record_function`` is opened. The names the benchmark's traced
@@ -34,8 +35,10 @@ DENSE_KEYS = {
     "build_database", "prepare", "prepare.alignment", "prepare.tree",
     "prepare.extend", "prepare.ar", "prepare.ar_read", "build",
     "computation", "stage1_inputs", "device_compute", "transfer",
-    "transfer_bytes", "wait_stage1", "host_extract", "unpack", "extract",
+    "transfer_bytes", "card_extract_batches", "wait_stage1", "host_extract",
     "mif0", "filter_merge", "sort", "concat", "serialize", "untraced"}
+#: the counters among them
+COUNTERS = {"transfer_bytes", "card_extract_batches"}
 #: the spans whose self time is ``untraced``
 GROUPS = {"build_database", "prepare", "build", "computation",
           "filter_merge"}
@@ -53,12 +56,10 @@ def _params(tmp, num_leaves=10, width=80, k=6, **kw):
 
 @pytest.fixture(scope="module")
 def dense_builds(tmp_path_factory):
-    """Three dense builds (16 taxa x 200 sites, k=7) whose batch crosses as
-    a bitmask, so every span of the dense path runs."""
+    """Three dense builds (16 taxa x 200 sites, k=7), so every span of the
+    dense path runs."""
     params = _params(tmp_path_factory.mktemp("spans"), 16, 200, 7)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("IPK_TPU_TRANSFER", "bitmask")
-        return [build_database(params) for _ in range(3)]
+    return [build_database(params) for _ in range(3)]
 
 
 @pytest.fixture(scope="module")
@@ -69,15 +70,15 @@ def dense_build(dense_builds):
 def test_dense_build_returns_every_key(dense_build):
     t = dense_build.timings
     assert DENSE_KEYS <= set(t), DENSE_KEYS - set(t)
-    assert t["transfer_bytes"] > 0 and isinstance(t["transfer_bytes"], int)
+    assert all(t[k] > 0 and isinstance(t[k], int) for k in COUNTERS)
     assert all(t[k] >= 0 for k in DENSE_KEYS)
     assert dense_build.db.size() > 0
 
 
 def test_children_lie_inside_their_parents(dense_build):
     recorded = dense_build.spans
-    assert {s.name for s in recorded} >= DENSE_KEYS - {
-        "device_compute", "transfer_bytes", "untraced"}
+    assert {s.name for s in recorded} >= DENSE_KEYS - COUNTERS - {
+        "device_compute", "untraced"}
     roots = [s for s in recorded if s.parent is None]
     assert [s.name for s in roots] == ["build_database"]
     for s in recorded:
@@ -104,15 +105,11 @@ def test_children_lie_inside_their_parents(dense_build):
 
 
 def test_keys_cover_what_they_covered(dense_builds, dense_build):
-    # host_extract is unpack + extract; the median over three builds, since
-    # a loaded host can stall the main thread between two spans (the
-    # prefetch worker holding the interpreter while it frees stage 1)
-    gaps = sorted((b.timings["host_extract"] - b.timings["unpack"]
-                   - b.timings["extract"]) / b.timings["host_extract"]
-                  for b in dense_builds)
-    assert gaps[0] >= 0 and gaps[1] <= 0.01, gaps
+    # the mif0 column pass lies inside its batch's device work, on every
+    # build
+    for b in dense_builds:
+        assert 0 < b.timings["mif0"] <= b.timings["device_compute"]
     t = dense_build.timings
-    assert t["mif0"] <= t["extract"]
     assert t["concat"] <= t["sort"]
     assert t["sort"] + t["serialize"] <= t["filter_merge"]
     assert t["stage1_inputs"] + t["host_extract"] + t["wait_stage1"] <= (
@@ -122,6 +119,23 @@ def test_keys_cover_what_they_covered(dense_builds, dense_build):
                                   "prepare.ar_read"))
     assert children <= t["prepare"]
     assert t["prepare"] + t["build"] <= t["build_database"]
+
+
+def test_device_route_records_mif0_and_its_batches(dense_build):
+    """Stage 2 runs beside stage 1 (the plain version of
+    ``extract_columns`` here): the column pass is the ``mif0`` span, on the
+    prefetch worker inside its ``stage1.batch``; every key batch adds one to
+    ``card_extract_batches``; no bitmask is unpacked and no host extraction
+    runs."""
+    result = dense_build
+    t, recorded = result.timings, result.spans
+    batches = [s for s in recorded if s.name == "stage1.batch"]
+    assert batches and t["card_extract_batches"] == len(batches)
+    assert "unpack" not in t and "extract" not in t
+    mif0 = [s for s in recorded if s.name == "mif0"]
+    assert len(mif0) == len(batches) and t["mif0"] > 0
+    assert all(s.parent.name == "stage1.batch" for s in mif0)
+    assert "host_extract" in t and result.db.size() > 0
 
 
 def test_untraced_is_the_self_time_of_the_groups(dense_build):
