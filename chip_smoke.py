@@ -76,10 +76,12 @@ nvidia-smi. Imports nothing of JAX. Every phase raises on failure:
              in-RAM order but among keys whose float32 filter values tie
              while their float64 values differ (ipk_tpu's on-disk merge
              orders them so); the 64-taxon project at DNA k=8 with
-             --on-disk, card payload-equal to CPU; the 64-taxon project at
-             DNA k=10 forced sparse with --on-disk, the same rows as its
-             in-RAM sparse build in that order (the merge re-sorts even
-             one part); hashmaps/ removed.
+             --on-disk, card payload-equal to CPU, and once more with its
+             output on the null device (nothing left beside it, nothing
+             but the build's own files under the working directory); the
+             64-taxon project at DNA k=10 forced sparse with --on-disk,
+             the same rows as its in-RAM sparse build in that order (the
+             merge re-sorts even one part); hashmaps/ removed.
 10. place  — 100,000 reads of 150 sites cut from the scale alignment's
              leaves with 5% substitutions placed against phase 5's database
              through ``python -m ipk_tpu_torch place`` (reads/s, peak
@@ -1377,6 +1379,32 @@ def phase_on_disk(torch, tmp, tree_file, fasta_file, ar_dir):
         f"k={POS_MID['k']} --on-disk (key batches merged): card "
         f"payload-equal to CPU ({load_db(outs['cuda']).size()} k-mers); wall "
         f"card {walls['cuda']:.3f} s, CPU {walls['cpu']:.3f} s")
+    # the same build with its output on the null device: the spill and the
+    # merge's sections stay under the working directory and go with it
+    wd = os.path.join(mid, "wd_disk_k8_null")
+    t0 = time.monotonic()
+    result = build_database(BuildParams(
+        refalign=os.path.join(mid, "reference.fasta"),
+        reftree=os.path.join(mid, "tree.newick"),
+        ar_dir=os.path.join(mid, "ar_out"), kmer_size=POS_MID["k"],
+        omega=POS_MID["omega"], on_disk=True, working_dir=wd,
+        output_filename=os.devnull, verbosity=0, device="cuda"))
+    wall = time.monotonic() - t0
+    left = sorted(set(os.listdir(wd)) - set(os.listdir(
+        os.path.join(mid, "wd_disk_k8_cuda"))))
+    if (os.path.exists(os.devnull + ".merge") or left
+            or os.path.exists(os.path.join(wd, "hashmaps"))):
+        raise RuntimeError(f"[on-disk] output on {os.devnull}: "
+                           f"{os.devnull}.merge or hashmaps/ left behind, or "
+                           f"{left} in the working directory")
+    t = result.timings
+    log(f"[on-disk] DNA k={POS_MID['k']} --on-disk -o {os.devnull}: "
+        f"nothing beside the output, hashmaps/ and its merge sections "
+        f"removed; {t['spill_parts']} parts, {t['spill_bytes']} bytes "
+        f"spilled, {t['merge_rows']} rows merged in {t['merge_blocks']} "
+        f"blocks; spill {t['spill']:.3f} s, merge blocks "
+        f"{t['merge.blocks']:.3f} s, write {t['merge.write']:.3f} s; wall "
+        f"{wall:.3f} s")
     wd = os.path.join(mid, "wd_sparse_disk")
     out = os.path.join(mid, "sparse_disk.ipk")
     t0 = time.monotonic()

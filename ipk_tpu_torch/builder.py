@@ -25,7 +25,8 @@
 * stage 3: global ascending (fv, key) sort and one streaming write; with
   ``on_disk``, each key batch (or the one sparse part) is sorted and saved
   under ``<working_dir>/hashmaps/``, then ``host._merge_on_disk`` merges them
-  into the output and the directory is removed.
+  into the output through column sections in ``<working_dir>/hashmaps/merge/``
+  and the directory is removed: nothing is written beside the output.
 
 Over several ranks (a ``torch.distributed`` world of more than one rank,
 unless ``IPK_TPU_NO_SHARD=1``) every path shards the branch axis as
@@ -456,9 +457,10 @@ def build(original_tree: PhyloTree,
     the sparse path where σ^k ≥ ``MAX_DENSE_KEYSPACE``. ``sparse_cap`` is the
     per-window survivor-list ceiling there (``--max-candidates``).
 
-    With ``on_disk`` the sorted parts go through ``<working_dir>/hashmaps/``
-    into ``output_filename``, and the returned database holds no arrays (as
-    in ``ipk_tpu``: load the output to read it).
+    With ``on_disk`` the sorted parts and the merge's column sections go
+    through ``<working_dir>/hashmaps/`` into ``output_filename``, and the
+    returned database holds no arrays (as in ``ipk_tpu``: load the output to
+    read it).
 
     The build's spans and counters go to ``recorder`` (a new
     ``spans.Recorder`` when None), whose ``timings`` and ``spans`` the
@@ -467,7 +469,11 @@ def build(original_tree: PhyloTree,
     with the device's ``mif0`` span and the ``card_extract_batches`` counter
     on the dense path without positions, ``wait_stage1``, ``host_extract``
     with ``extract``, and ``mif0`` under that, on the others) and
-    ``filter_merge`` (``sort`` with ``concat``, ``serialize``)."""
+    ``filter_merge`` (``sort`` with ``concat``, ``serialize``). With
+    ``on_disk`` each part's sort and uncompressed save is a ``spill`` span
+    inside ``host_extract`` (counters ``spill_parts`` and ``spill_bytes``),
+    and ``filter_merge`` holds ``merge`` (``merge.blocks``, ``merge.write``;
+    counters ``merge_blocks`` and ``merge_rows``)."""
     retain_heap()
     sigma = traits.alphabet_size
     if kmer_size > traits.max_kmer_length:
@@ -502,13 +508,17 @@ def build(original_tree: PhyloTree,
         if not on_disk:
             parts.append(part)
             return
-        keys, fv, offsets, branches, scores, positions = _sort_batch(*part)
-        temp_db = PhyloKmerDB(kmer_size, omega, traits.name, "", [])
-        temp_db.set_data(keys, fv.astype(np.float32), offsets, branches,
-                         scores, positions)
-        name = os.path.join(hashmaps_dir, f"{len(temp_files)}.ipk")
-        serialize.save(temp_db, name, compressed=False)
+        with rec.span("spill"):
+            keys, fv, offsets, branches, scores, positions = _sort_batch(
+                *part)
+            temp_db = PhyloKmerDB(kmer_size, omega, traits.name, "", [])
+            temp_db.set_data(keys, fv.astype(np.float32), offsets, branches,
+                             scores, positions)
+            name = os.path.join(hashmaps_dir, f"{len(temp_files)}.ipk")
+            serialize.save(temp_db, name, compressed=False)
         temp_files.append(name)
+        rec.add("spill_parts", 1)
+        rec.add("spill_bytes", os.path.getsize(name))
 
     num_explored = 0
     stats: Dict = {}
@@ -622,7 +632,9 @@ def build(original_tree: PhyloTree,
             if on_disk:
                 # the result stays on disk, as in ipk_tpu
                 # (db_builder.cpp:467-493)
-                _merge_on_disk(db, temp_files, output_filename, uncompressed)
+                with rec.span("merge", group=True):
+                    _merge_on_disk(db, temp_files, output_filename,
+                                   uncompressed, recorder=rec)
                 shutil.rmtree(hashmaps_dir, ignore_errors=True)
             else:
                 with rec.span("sort"):

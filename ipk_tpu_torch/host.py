@@ -1,15 +1,23 @@
 """Host-side (numpy) stages of the build: key batching, progress, prefetch,
 survivor extraction with the mif0/random filter, and the (fv, key) sort.
 
-These are copies, verbatim in behaviour, of the numpy helpers of
-``ipk_tpu/builder.py`` (``log_threshold_f32``, ``pick_key_batches``,
-``_Progress``, ``BuildResult``, ``_prefetch``, ``_extract_batch``,
-``_extract_compact``, ``_extract_from_lists``, ``_extract_sorted_stream``,
-``_sort_batch``, ``_apply_range_gather``, ``_range_gather``, and the
-``--on-disk`` merge ``_MergeBuffer`` and ``_merge_on_disk``). They are
-copied because that module imports jax at the top, and the port runs where
-jax is not installed. They stay copies while ``ipk_tpu`` is the frozen
-reference.
+These are copies of the numpy helpers of ``ipk_tpu/builder.py``
+(``log_threshold_f32``, ``pick_key_batches``, ``_Progress``,
+``BuildResult``, ``_prefetch``, ``_extract_batch``, ``_extract_compact``,
+``_extract_from_lists``, ``_extract_sorted_stream``, ``_sort_batch``,
+``_apply_range_gather``, ``_range_gather``, and the ``--on-disk`` merge
+``_MergeBuffer`` and ``_merge_on_disk``). They are copied because that
+module imports jax at the top, and the port runs where jax is not
+installed. They stay copies while ``ipk_tpu`` is the frozen reference, and
+write the same bytes. Where they depart from it:
+
+* the extractors and the merge record spans and counters on the build's
+  ``spans.Recorder``;
+* ``_merge_on_disk`` writes its column sections to ``merge/`` beside the
+  sorted parts (``<working_dir>/hashmaps/merge`` in a build), where
+  ``ipk_tpu`` writes them beside the output (``<output>.merge``), which
+  lands in the null device's directory when the output is the null device
+  and fails where the output's directory is read only.
 """
 
 from __future__ import annotations
@@ -407,8 +415,9 @@ class _MergeBuffer:
 def _merge_on_disk(db: PhyloKmerDB, temp_files: List[str],
                    output_filename: Optional[str], uncompressed: bool,
                    positions: bool = False,
-                   block_rows: int = 1 << 16) -> None:
-    """Out-of-core k-way merge of sorted batch DBs into the output archive
+                   block_rows: int = 1 << 16, *,
+                   recorder: Optional[Recorder] = None) -> None:
+    """Out-of-core merge of sorted batch DBs into the output archive
     (``merge_stage2``, ``db_builder.cpp:392-458``).
 
     Batches are key-disjoint and internally sorted ascending by (fv, key), so
@@ -417,12 +426,18 @@ def _merge_on_disk(db: PhyloKmerDB, temp_files: List[str],
     equivalent advances one *block* at a time: refill every buffer, cut at
     the smallest last-resident (fv, key) among loaders that still have rows
     on disk (rows beyond a cut cannot interleave before it), lexsort the cut
-    prefix, spill the five columns to temp section files, and finally stream
-    the sections through the compressor. Peak memory is
+    prefix, spill the five columns to section files in ``merge/`` beside
+    the parts, and finally stream the sections through the compressor; the
+    sections' directory is removed after. Peak memory is
     O(block_rows · num_batches), independent of database size.
+
+    On ``recorder`` the block loop is the span ``merge.blocks`` and the
+    write the span ``merge.write``; ``merge_blocks`` counts the rounds that
+    took rows and ``merge_rows`` the rows merged.
     """
     if not output_filename:
         raise RuntimeError("--on-disk requires an output filename")
+    rec = recorder if recorder is not None else Recorder()
     loaders = [serialize.BatchLoader(f, block_rows=block_rows)
                for f in temp_files]
     total_kmers = sum(l.get_num_kmers() for l in loaders)
@@ -432,57 +447,63 @@ def _merge_on_disk(db: PhyloKmerDB, temp_files: List[str],
     spill_names = ["keys", "fvs", "counts", "branches", "scores"]
     if positions:
         spill_names.append("positions")
-    spill_dir = output_filename + ".merge"
+    spill_dir = os.path.join(os.path.dirname(temp_files[0]), "merge")
     os.makedirs(spill_dir, exist_ok=True)
     spills = {n: open(os.path.join(spill_dir, n + ".bin"), "wb")
               for n in spill_names}
     try:
-        while True:
-            for b in buffers:
-                b.fill()
-            live = [b for b in buffers if b.rows]
-            if not live:
-                break
-            bounding = [b.bound() for b in live if b.loader.rows_left() > 0]
-            cut = min(bounding) if bounding else None
-            taken = [t for b in live if (t := b.take_upto(cut)) is not None]
-            if not taken:       # all resident rows sort after the cut
-                continue
-            keys = np.concatenate([t[0] for t in taken])
-            fvs = np.concatenate([t[1] for t in taken])
-            counts = np.concatenate([t[2] for t in taken])
-            order = np.lexsort((keys, fvs))
-            offs = np.zeros(len(keys) + 1, dtype=np.int64)
-            np.cumsum(counts, out=offs[1:])
-            gather = _range_gather(offs, counts, order)
-            spills["keys"].write(
-                np.ascontiguousarray(keys[order], "<u8").tobytes())
-            spills["fvs"].write(
-                np.ascontiguousarray(fvs[order], "<f4").tobytes())
-            spills["counts"].write(
-                np.ascontiguousarray(counts[order], "<u8").tobytes())
-            br = np.concatenate([t[3] for t in taken])
-            sc = np.concatenate([t[4] for t in taken])
-            spills["branches"].write(
-                np.ascontiguousarray(br[gather], "<u4").tobytes())
-            spills["scores"].write(
-                np.ascontiguousarray(sc[gather], "<f4").tobytes())
-            if positions:
-                po = np.concatenate([t[5] for t in taken])
-                spills["positions"].write(
-                    np.ascontiguousarray(po[gather], "<u4").tobytes())
+        with rec.span("merge.blocks"):
+            while True:
+                for b in buffers:
+                    b.fill()
+                live = [b for b in buffers if b.rows]
+                if not live:
+                    break
+                bounding = [b.bound() for b in live
+                            if b.loader.rows_left() > 0]
+                cut = min(bounding) if bounding else None
+                taken = [t for b in live
+                         if (t := b.take_upto(cut)) is not None]
+                if not taken:       # all resident rows sort after the cut
+                    continue
+                keys = np.concatenate([t[0] for t in taken])
+                fvs = np.concatenate([t[1] for t in taken])
+                counts = np.concatenate([t[2] for t in taken])
+                rec.add("merge_blocks", 1)
+                rec.add("merge_rows", len(keys))
+                order = np.lexsort((keys, fvs))
+                offs = np.zeros(len(keys) + 1, dtype=np.int64)
+                np.cumsum(counts, out=offs[1:])
+                gather = _range_gather(offs, counts, order)
+                spills["keys"].write(
+                    np.ascontiguousarray(keys[order], "<u8").tobytes())
+                spills["fvs"].write(
+                    np.ascontiguousarray(fvs[order], "<f4").tobytes())
+                spills["counts"].write(
+                    np.ascontiguousarray(counts[order], "<u8").tobytes())
+                br = np.concatenate([t[3] for t in taken])
+                sc = np.concatenate([t[4] for t in taken])
+                spills["branches"].write(
+                    np.ascontiguousarray(br[gather], "<u4").tobytes())
+                spills["scores"].write(
+                    np.ascontiguousarray(sc[gather], "<f4").tobytes())
+                if positions:
+                    po = np.concatenate([t[5] for t in taken])
+                    spills["positions"].write(
+                        np.ascontiguousarray(po[gather], "<u4").tobytes())
     finally:
         for f in spills.values():
             f.close()
         for l in loaders:
             l.close()
 
-    with serialize.IpkWriter(output_filename,
-                             compressed=not uncompressed) as w:
-        w.write_header(db, total_kmers, total_entries)
-        for name in spill_names:
-            path = os.path.join(spill_dir, name + ".bin")
-            with open(path, "rb") as f:
-                while chunk := f.read(1 << 22):
-                    w.write_raw(chunk)
+    with rec.span("merge.write"):
+        with serialize.IpkWriter(output_filename,
+                                 compressed=not uncompressed) as w:
+            w.write_header(db, total_kmers, total_entries)
+            for name in spill_names:
+                path = os.path.join(spill_dir, name + ".bin")
+                with open(path, "rb") as f:
+                    while chunk := f.read(1 << 22):
+                        w.write_raw(chunk)
     shutil.rmtree(spill_dir, ignore_errors=True)

@@ -594,6 +594,42 @@ def test_merge_on_disk_orders_by_stored_filter_value(tmp_path):
     assert merged.keys.tolist() == [7, 9, 1, 3, 12, 5]
 
 
+@pytest.mark.parametrize("to_null", [True, False])
+def test_on_disk_build_writes_only_under_its_working_dir(
+        dna_project, monkeypatch, tmp_path, to_null):
+    """An --on-disk build spills its parts and the merge's column sections
+    under <working_dir>/hashmaps/, never beside the output: a build whose
+    output is the null device completes, every directory it makes lies
+    under the working directory, the output's directory gains nothing but
+    the output, and hashmaps/ is gone after."""
+    tmp, states, k, omega, tree_file, fasta_file, ar_dir = dna_project
+    wd = tmp_path / "wd"
+    out = os.devnull if to_null else str(tmp_path / "out" / "DB.ipk")
+    out_dir = os.path.dirname(out)
+    os.makedirs(out_dir, exist_ok=True)
+    before = set(os.listdir(out_dir))
+    made = []
+    real_makedirs = os.makedirs
+
+    def makedirs(name, *a, **kw):
+        made.append(os.path.abspath(name))
+        return real_makedirs(name, *a, **kw)
+
+    monkeypatch.setattr(os, "makedirs", makedirs)
+    result = build_database(BuildParams(
+        refalign=fasta_file, reftree=tree_file, states=states,
+        working_dir=str(wd), ar_dir=ar_dir, kmer_size=k, omega=omega,
+        output_filename=out, on_disk=True, verbosity=0, device="cpu"))
+    monkeypatch.undo()
+    assert result.timings["merge_rows"] > 0
+    assert any(m.startswith(str(wd / "hashmaps")) for m in made)
+    assert all(m.startswith(str(wd)) for m in made), made
+    gained = set(os.listdir(out_dir)) - before
+    assert gained == (set() if to_null else {"DB.ipk"}), gained
+    assert not os.path.exists(out + ".merge")
+    assert not os.path.exists(wd / "hashmaps")
+
+
 def test_on_disk_rejects_positions(aa_project):
     tmp, states, k, omega, tree_file, fasta_file, ar_dir = aa_project
     with pytest.raises(RuntimeError, match="Positions are not supported"):

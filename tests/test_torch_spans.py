@@ -9,7 +9,10 @@ makes the keys; ``sort`` covers ``concat``, ``untraced``
 is the self time of the grouping spans; under ``torch.profiler`` the spans
 are ``ipk.*`` events of the Chrome trace, nested as recorded; without a
 profiler no ``record_function`` is opened. The names the benchmark's traced
-run wraps resolve to callables of the program.
+run wraps resolve to callables of the program. An on-disk build (the DNA
+k=10 configuration of the benchmark at 4 taxa x 20 sites, four key batches)
+records its spill and its merge, and its database passes the benchmark's
+comparison with the plain reference; an in-RAM build records neither.
 
 This file imports no jax; its ``cuda``-marked test runs on a card with
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_spans.py``.
@@ -25,6 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
+from ipk_tpu_torch import serialize
 from ipk_tpu_torch.pipeline import BuildParams, build_database
 from ipk_tpu_torch.spans import Recorder
 
@@ -42,6 +46,10 @@ COUNTERS = {"transfer_bytes", "card_extract_batches"}
 #: the spans whose self time is ``untraced``
 GROUPS = {"build_database", "prepare", "build", "computation",
           "filter_merge"}
+#: the keys only an on-disk build records, and the counters among them
+DISK_KEYS = {"spill", "spill_parts", "spill_bytes", "merge", "merge.blocks",
+             "merge.write", "merge_blocks", "merge_rows"}
+DISK_COUNTERS = {"spill_parts", "spill_bytes", "merge_blocks", "merge_rows"}
 
 
 def _params(tmp, num_leaves=10, width=80, k=6, **kw):
@@ -136,6 +144,113 @@ def test_device_route_records_mif0_and_its_batches(dense_build):
     assert len(mif0) == len(batches) and t["mif0"] > 0
     assert all(s.parent.name == "stage1.batch" for s in mif0)
     assert "host_extract" in t and result.db.size() > 0
+
+
+def _portbench(name):
+    """A module of the benchmark (``portbench/``), which sits beside the
+    program."""
+    sys.path.insert(0, REPO)
+    try:
+        return importlib.import_module("portbench." + name)
+    finally:
+        sys.path.remove(REPO)
+
+
+@pytest.fixture(scope="module")
+def disk_build(tmp_path_factory):
+    """The benchmark's DNA k=10 on-disk build, as its harness makes it, at 4
+    taxa x 20 sites on the CPU: (result, project files, configuration, the
+    output, the size of each part spilled under hashmaps/)."""
+    harness, project = _portbench("harness"), _portbench("project")
+    with open(os.path.join(REPO, "portbench", "configs",
+                           "dna150x1500-k10.json")) as f:
+        config = json.load(f)
+    config.update(num_leaves=4, width=20)
+    with open(os.path.join(REPO, "portbench", "traffic",
+                           "build-on-disk.json")) as f:
+        traffic = json.load(f)
+    tmp = tmp_path_factory.mktemp("disk")
+    files = project.make_project(str(tmp / "project"), 4, 20, 2**31 + 17,
+                                 config["model"])
+    out = str(tmp / "DB.ipk")
+    spilled = {}
+    real_save = serialize.save
+
+    def save(db, filename, compressed=True):
+        real_save(db, filename, compressed)
+        if os.sep + "hashmaps" + os.sep in filename:
+            spilled[filename] = os.path.getsize(filename)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(harness, "DEVICE", "cpu")
+        params = harness.build_params(files, str(tmp / "wd"), out, config,
+                                      traffic)
+        mp.setattr(serialize, "save", save)
+        result = build_database(params)
+    return result, files, config, out, spilled
+
+
+def test_on_disk_build_records_the_spill_and_the_merge(disk_build):
+    result, _, _, _, _ = disk_build
+    t = result.timings
+    assert DISK_KEYS <= set(t), DISK_KEYS - set(t)
+    assert all(t[k] > 0 and isinstance(t[k], int) for k in DISK_COUNTERS)
+    assert all(t[k] > 0 for k in DISK_KEYS - DISK_COUNTERS)
+    assert "sort" not in t and "serialize" not in t
+    parents = {s.name: s.parent.name for s in result.spans
+               if s.name in DISK_KEYS}
+    assert parents == {"spill": "host_extract", "merge": "filter_merge",
+                       "merge.blocks": "merge", "merge.write": "merge"}
+    assert {s.name for s in result.spans if s.group} == GROUPS | {"merge"}
+
+
+def test_spill_counters_count_the_parts_written(disk_build):
+    result, _, _, out, spilled = disk_build
+    t = result.timings
+    assert len(spilled) == t["card_extract_batches"] == 4
+    assert t["spill_parts"] == len(spilled)
+    assert t["spill_bytes"] == sum(spilled.values())
+    assert t["spill"] <= t["host_extract"]
+    assert t["merge_rows"] == serialize.load(out).size()
+    assert 1 <= t["merge_blocks"] <= t["merge_rows"]
+
+
+def test_merge_children_lie_within_the_merge(disk_build):
+    result, _, _, _, _ = disk_build
+    t = result.timings
+    assert t["merge.blocks"] + t["merge.write"] <= t["merge"]
+    assert t["merge"] <= t["filter_merge"]
+    merge = next(s for s in result.spans if s.name == "merge")
+    for s in result.spans:
+        if s.name.startswith("merge."):
+            assert merge.start <= s.start and s.end <= merge.end
+
+
+def test_in_ram_build_records_no_spill_or_merge(dense_build):
+    assert not DISK_KEYS & set(dense_build.timings)
+    assert not DISK_KEYS & {s.name for s in dense_build.spans}
+
+
+def test_on_disk_k10_build_passes_the_benchmark_comparison(disk_build):
+    """The dense DNA k=10 on-disk build against the benchmark's plain
+    reference (``portbench/compare.py``), over the configuration's sampled
+    keys: every number within the configuration's limit, on the (f32 fv,
+    key) row order of the on-disk merge."""
+    compare, reference = _portbench("compare"), _portbench("reference")
+    _, files, config, out, _ = disk_build
+    b = config["build"]
+    with open(files.tree_file) as f:
+        lay = reference.layout(f.read())
+    logp = torch.log10(torch.from_numpy(files.probs).to(torch.float32))
+    keys = compare.sample_keys(b["kmer_size"], config["check_keys"],
+                               2**31 + 17)
+    db = reference.read_ipk(out)
+    assert len(db.keys) > 0
+    numbers = compare.compare(db, logp, lay, keys, b["kmer_size"],
+                              b["omega"], config["limits"])
+    assert set(numbers) == set(compare.NAMES)
+    for name, value in numbers.items():
+        assert value <= config["limits"][name], (name, numbers)
 
 
 def test_untraced_is_the_self_time_of_the_groups(dense_build):
@@ -255,11 +370,7 @@ def test_recorder_counts_exactly_across_threads():
 
 
 def test_traced_run_wraps_callables_of_the_program():
-    sys.path.insert(0, REPO)
-    try:
-        harness = importlib.import_module("portbench.harness")
-    finally:
-        sys.path.remove(REPO)
+    harness = _portbench("harness")
     wrapped = list(harness.SPANS) + [
         ("ipk_tpu_torch.builder", "_prefetch", "wait_stage1")]
     for mod_name, attr, _ in wrapped:
