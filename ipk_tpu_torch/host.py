@@ -18,17 +18,28 @@ write the same bytes. Where they depart from it:
   ``ipk_tpu`` writes them beside the output (``<output>.merge``), which
   lands in the null device's directory when the output is the null device
   and fails where the output's directory is read only.
+* ``_merge_on_disk`` compresses its sections the way ``serialize.save``
+  does (``_write_sections``): the scores stored at level 0, every other
+  chunk deflated at level 2, each 4 MiB chunk on its own, where ``ipk_tpu``
+  deflates the whole file as one level-2 stream. The decompressed payload
+  is unchanged; the compressed bytes are those of the in-RAM build's
+  ``save`` of the same rows, up to the chunk length once a section reaches
+  32 MiB (``save`` then cuts its columns in eighths of the largest).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import queue
 import shutil
+import struct
 import sys
 import threading
-from typing import Dict, Iterator, List, Optional
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -427,13 +438,15 @@ def _merge_on_disk(db: PhyloKmerDB, temp_files: List[str],
     the smallest last-resident (fv, key) among loaders that still have rows
     on disk (rows beyond a cut cannot interleave before it), lexsort the cut
     prefix, spill the five columns to section files in ``merge/`` beside
-    the parts, and finally stream the sections through the compressor; the
-    sections' directory is removed after. Peak memory is
+    the parts, and finally write the header and the sections to the output,
+    compressed chunk by chunk at ``save``'s levels (``_write_sections``) or
+    as they are; the sections' directory is removed after. Peak memory is
     O(block_rows · num_batches), independent of database size.
 
     On ``recorder`` the block loop is the span ``merge.blocks`` and the
     write the span ``merge.write``; ``merge_blocks`` counts the rounds that
-    took rows and ``merge_rows`` the rows merged.
+    took rows and ``merge_rows`` the rows merged, and a compressed write
+    adds ``_write_sections``' counters.
     """
     if not output_filename:
         raise RuntimeError("--on-disk requires an output filename")
@@ -498,12 +511,87 @@ def _merge_on_disk(db: PhyloKmerDB, temp_files: List[str],
             l.close()
 
     with rec.span("merge.write"):
-        with serialize.IpkWriter(output_filename,
-                                 compressed=not uncompressed) as w:
+        header = os.path.join(spill_dir, "header.bin")
+        with serialize.IpkWriter(header, compressed=False) as w:
             w.write_header(db, total_kmers, total_entries)
-            for name in spill_names:
-                path = os.path.join(spill_dir, name + ".bin")
-                with open(path, "rb") as f:
-                    while chunk := f.read(1 << 22):
-                        w.write_raw(chunk)
+        paths = [header] + [os.path.join(spill_dir, name + ".bin")
+                            for name in spill_names]
+        if uncompressed:
+            with open(output_filename, "wb") as out:
+                for path in paths:
+                    with open(path, "rb") as f:
+                        shutil.copyfileobj(f, out, 1 << 22)
+        else:
+            # serialize.save's levels, read from the same variables
+            level = int(os.environ.get("IPK_TPU_ZLIB_LEVEL",
+                                       serialize.IpkWriter.DEFAULT_ZLIB_LEVEL))
+            score_level = int(os.environ.get("IPK_TPU_SCORE_ZLIB_LEVEL", 0))
+            _write_sections(
+                output_filename,
+                [(p, score_level if n == "scores" else level)
+                 for p, n in zip(paths, ["header"] + spill_names)],
+                host_threads("IPK_TPU_ZLIB_THREADS"), recorder=rec)
     shutil.rmtree(spill_dir, ignore_errors=True)
+
+
+def _write_sections(out_path: str, sections: List[Tuple[str, int]],
+                    nthreads: int, chunk_bytes: int = 1 << 22, *,
+                    recorder: Optional[Recorder] = None) -> None:
+    """Write the concatenation of ``sections`` (files, each with its zlib
+    level) to ``out_path`` as one zlib stream, encoded as
+    ``serialize._parallel_zlib`` encodes ``save``'s columns: each file cut
+    into ``chunk_bytes`` pieces from its own start, each piece raw-deflated
+    on its own at its file's level (0 stores it) and ended by a full flush,
+    under one zlib header, the final empty block and the adler32 of the
+    whole payload.
+
+    Pieces are read only as the pool can take them: at most
+    ``2 * nthreads`` are read and not yet written, so memory is bounded by
+    the chunk length and the thread count, whatever the files' sizes
+    (``ThreadPoolExecutor.map`` would submit, and so read, every piece at
+    once). On ``recorder`` the counters ``merge_write_stored_bytes`` and
+    ``merge_write_deflated_bytes`` count the input bytes written at level 0
+    and above it, and ``merge_write_chunks`` the pieces.
+    """
+    rec = recorder if recorder is not None else Recorder()
+
+    def deflate(piece: bytes, level: int) -> Tuple[bytes, bytes]:
+        co = zlib.compressobj(level, zlib.DEFLATED, -15)
+        return co.compress(piece), co.flush(zlib.Z_FULL_FLUSH)
+
+    adler = zlib.adler32(b"")
+    stored = deflated = chunks = 0
+    pending: collections.deque = collections.deque()   # (piece, future)
+    with open(out_path, "wb") as out, \
+            ThreadPoolExecutor(max_workers=nthreads) as pool:
+
+        def write_oldest() -> None:
+            nonlocal adler
+            piece, future = pending.popleft()
+            adler = zlib.adler32(piece, adler)
+            for part in future.result():
+                out.write(part)
+
+        out.write(b"\x78\x01")              # zlib header (CM=8, no dict)
+        for path, level in sections:
+            with open(path, "rb") as f:
+                while True:
+                    if len(pending) == 2 * nthreads:
+                        write_oldest()
+                    piece = f.read(chunk_bytes)
+                    if not piece:
+                        break
+                    pending.append((piece, pool.submit(deflate, piece, level)))
+                    chunks += 1
+                    if level == 0:
+                        stored += len(piece)
+                    else:
+                        deflated += len(piece)
+        while pending:
+            write_oldest()
+        # the final empty block carries BFINAL, then the stream's checksum
+        out.write(zlib.compressobj(1, zlib.DEFLATED, -15).flush(zlib.Z_FINISH))
+        out.write(struct.pack(">I", adler & 0xFFFFFFFF))
+    rec.add("merge_write_stored_bytes", stored)
+    rec.add("merge_write_deflated_bytes", deflated)
+    rec.add("merge_write_chunks", chunks)

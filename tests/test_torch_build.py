@@ -528,12 +528,14 @@ def test_positions_earliest_window_tiebreak():
     ("disk_kb2", {"key_batches": 2}),
     ("disk_kb4", {"key_batches": 4}),
     ("disk_sparse", {"sparse": True}),
+    ("disk_raw", {"uncompressed": True}),
 ])
 def test_port_matches_jax_build_on_disk(dna_project, monkeypatch, name,
                                         opts):
-    """--on-disk: payload-equal to ipk_tpu's on-disk build and to the
-    port's in-RAM build; the temporary hashmaps/ directory is gone; the
-    returned database holds no arrays."""
+    """--on-disk: payload-equal to ipk_tpu's on-disk build (uncompressed,
+    byte-equal) and byte-equal to the port's in-RAM build (its sections
+    compressed as ``save`` compresses columns); the temporary hashmaps/
+    directory is gone; the returned database holds no arrays."""
     tmp, states, k, omega, tree_file, fasta_file, ar_dir = dna_project
     jax_out, torch_out = build_pair(dna_project, name, monkeypatch,
                                     on_disk=True, **opts)
@@ -542,8 +544,11 @@ def test_port_matches_jax_build_on_disk(dna_project, monkeypatch, name,
     build_database(BuildParams(
         refalign=fasta_file, reftree=tree_file, states=states,
         working_dir=str(tmp / f"wd_{name}_ram"), ar_dir=ar_dir, kmer_size=k,
-        omega=omega, output_filename=ram_out, verbosity=0, device="cpu"))
+        omega=omega, output_filename=ram_out, verbosity=0, device="cpu",
+        uncompressed=opts.get("uncompressed", False)))
     assert payload(torch_out) == payload(ram_out)
+    with open(torch_out, "rb") as f, open(ram_out, "rb") as g:
+        assert f.read() == g.read()
     assert not os.path.exists(str(tmp / f"wd_{name}_torch" / "hashmaps"))
     result = build_database(BuildParams(
         refalign=fasta_file, reftree=tree_file, states=states,
@@ -592,6 +597,40 @@ def test_merge_on_disk_orders_by_stored_filter_value(tmp_path):
     merged = serialize.load(outs[0])
     # in-RAM (float64) order would be 7, 9, 3, 1, 12, 5
     assert merged.keys.tolist() == [7, 9, 1, 3, 12, 5]
+
+
+def test_write_sections_holds_few_chunks(tmp_path):
+    """The on-disk merge's compressed write reads its section files a chunk
+    at a time as its pool takes them: on 24 MiB of sections, 1 MiB chunks
+    and one thread, the allocations it holds at once stay under 8 MiB, and
+    the file decompresses to the magic, the header and the sections in
+    order."""
+    import tracemalloc
+    from ipk_tpu_torch import serialize
+    from ipk_tpu_torch.host import _write_sections
+    rng = np.random.default_rng(5)
+    sections = [
+        ("header", serialize._MAGIC + b"header fields", 2),
+        ("keys", np.arange(1 << 20, dtype="<u8").tobytes(), 2),
+        ("scores", rng.uniform(-3.4, 0, 1 << 22).astype("<f4").tobytes(), 0),
+        ("branches", rng.integers(0, 510, 1 << 20, dtype="<u4").tobytes(), 2)]
+    files = []
+    for name, data, level in sections:
+        files.append((str(tmp_path / f"{name}.bin"), level))
+        with open(files[-1][0], "wb") as f:
+            f.write(data)
+    expected = b"".join(data for _, data, _ in sections)
+    del sections
+    out = str(tmp_path / "DB.ipk")
+    tracemalloc.start()
+    try:
+        _write_sections(out, files, 1, chunk_bytes=1 << 20)
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    assert len(expected) > 24 << 20 and peak < 8 << 20, peak
+    with open(out, "rb") as f:
+        assert zlib.decompress(f.read()) == expected
 
 
 @pytest.mark.parametrize("to_null", [True, False])

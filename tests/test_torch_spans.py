@@ -11,8 +11,9 @@ are ``ipk.*`` events of the Chrome trace, nested as recorded; without a
 profiler no ``record_function`` is opened. The names the benchmark's traced
 run wraps resolve to callables of the program. An on-disk build (the DNA
 k=10 configuration of the benchmark at 4 taxa x 20 sites, four key batches)
-records its spill and its merge, and its database passes the benchmark's
-comparison with the plain reference; an in-RAM build records neither.
+records its spill and its merge, its write's counters add up to the
+decompressed payload, and its database passes the benchmark's comparison
+with the plain reference; an in-RAM build records neither.
 
 This file imports no jax; its ``cuda``-marked test runs on a card with
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_spans.py``.
@@ -23,6 +24,7 @@ import json
 import os
 import sys
 import threading
+import zlib
 
 import pytest
 import torch
@@ -47,9 +49,10 @@ COUNTERS = {"transfer_bytes", "card_extract_batches"}
 GROUPS = {"build_database", "prepare", "build", "computation",
           "filter_merge"}
 #: the keys only an on-disk build records, and the counters among them
-DISK_KEYS = {"spill", "spill_parts", "spill_bytes", "merge", "merge.blocks",
-             "merge.write", "merge_blocks", "merge_rows"}
-DISK_COUNTERS = {"spill_parts", "spill_bytes", "merge_blocks", "merge_rows"}
+DISK_COUNTERS = {"spill_parts", "spill_bytes", "merge_blocks", "merge_rows",
+                 "merge_write_stored_bytes", "merge_write_deflated_bytes",
+                 "merge_write_chunks"}
+DISK_KEYS = {"spill", "merge", "merge.blocks", "merge.write"} | DISK_COUNTERS
 
 
 def _params(tmp, num_leaves=10, width=80, k=6, **kw):
@@ -213,6 +216,21 @@ def test_spill_counters_count_the_parts_written(disk_build):
     assert t["spill"] <= t["host_extract"]
     assert t["merge_rows"] == serialize.load(out).size()
     assert 1 <= t["merge_blocks"] <= t["merge_rows"]
+
+
+def test_merge_write_counters_count_the_payload(disk_build):
+    """The compressed write stores the scores (4 bytes an entry) and
+    deflates the rest, the magic and the header included: the two counters
+    add up to the decompressed payload."""
+    result, _, _, out, _ = disk_build
+    t = result.timings
+    with open(out, "rb") as f:
+        payload = zlib.decompress(f.read())
+    assert t["merge_write_stored_bytes"] == (
+        4 * serialize.load(out).num_entries())
+    assert (t["merge_write_stored_bytes"] + t["merge_write_deflated_bytes"]
+            == len(payload))
+    assert t["merge_write_chunks"] >= 6
 
 
 def test_merge_children_lie_within_the_merge(disk_build):
