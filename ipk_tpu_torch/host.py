@@ -18,28 +18,21 @@ write the same bytes. Where they depart from it:
   ``ipk_tpu`` writes them beside the output (``<output>.merge``), which
   lands in the null device's directory when the output is the null device
   and fails where the output's directory is read only.
-* ``_merge_on_disk`` compresses its sections the way ``serialize.save``
-  does (``_write_sections``): the scores stored at level 0, every other
-  chunk deflated at level 2, each 4 MiB chunk on its own, where ``ipk_tpu``
-  deflates the whole file as one level-2 stream. The decompressed payload
-  is unchanged; the compressed bytes are those of the in-RAM build's
-  ``save`` of the same rows, up to the chunk length once a section reaches
-  32 MiB (``save`` then cuts its columns in eighths of the largest).
+* ``_merge_on_disk`` hands its header and sections to
+  ``serialize.write_ipk``, the in-RAM ``save``'s writer, so both builds
+  write one file for one database, where ``ipk_tpu`` deflates the merged
+  file as one level-2 stream. The decompressed payload is unchanged.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import os
 import queue
 import shutil
-import struct
 import sys
 import threading
-import zlib
-from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -437,16 +430,16 @@ def _merge_on_disk(db: PhyloKmerDB, temp_files: List[str],
     equivalent advances one *block* at a time: refill every buffer, cut at
     the smallest last-resident (fv, key) among loaders that still have rows
     on disk (rows beyond a cut cannot interleave before it), lexsort the cut
-    prefix, spill the five columns to section files in ``merge/`` beside
-    the parts, and finally write the header and the sections to the output,
-    compressed chunk by chunk at ``save``'s levels (``_write_sections``) or
-    as they are; the sections' directory is removed after. Peak memory is
-    O(block_rows · num_batches), independent of database size.
+    prefix, spill its columns to section files in ``merge/`` beside the
+    parts, and finally hand the header and the section files to
+    ``serialize.write_ipk``; the sections' directory is removed after. Peak
+    memory is O(block_rows · num_batches), independent of database size.
 
     On ``recorder`` the block loop is the span ``merge.blocks`` and the
     write the span ``merge.write``; ``merge_blocks`` counts the rounds that
     took rows and ``merge_rows`` the rows merged, and a compressed write
-    adds ``_write_sections``' counters.
+    adds the writer's counts as ``merge_write_stored_bytes``,
+    ``merge_write_deflated_bytes`` and ``merge_write_chunks``.
     """
     if not output_filename:
         raise RuntimeError("--on-disk requires an output filename")
@@ -454,16 +447,16 @@ def _merge_on_disk(db: PhyloKmerDB, temp_files: List[str],
     loaders = [serialize.BatchLoader(f, block_rows=block_rows)
                for f in temp_files]
     total_kmers = sum(l.get_num_kmers() for l in loaders)
-    total_entries = sum(l.num_entries for l in loaders)
+    total_entries = sum(l.header.num_entries for l in loaders)
     buffers = [_MergeBuffer(l, block_rows) for l in loaders]
 
-    spill_names = ["keys", "fvs", "counts", "branches", "scores"]
-    if positions:
-        spill_names.append("positions")
+    # the table's columns, in the order of a block's tuple
+    columns = serialize.columns(positions)
     spill_dir = os.path.join(os.path.dirname(temp_files[0]), "merge")
     os.makedirs(spill_dir, exist_ok=True)
-    spills = {n: open(os.path.join(spill_dir, n + ".bin"), "wb")
-              for n in spill_names}
+    paths = {name: os.path.join(spill_dir, name + ".bin")
+             for name, _, _ in columns}
+    spills = {name: open(path, "wb") for name, path in paths.items()}
     try:
         with rec.span("merge.blocks"):
             while True:
@@ -479,31 +472,20 @@ def _merge_on_disk(db: PhyloKmerDB, temp_files: List[str],
                          if (t := b.take_upto(cut)) is not None]
                 if not taken:       # all resident rows sort after the cut
                     continue
-                keys = np.concatenate([t[0] for t in taken])
-                fvs = np.concatenate([t[1] for t in taken])
-                counts = np.concatenate([t[2] for t in taken])
+                rows = [np.concatenate([t[i] for t in taken])
+                        for i in range(3)]         # keys, fvs, counts
+                keys, fvs, counts = rows
                 rec.add("merge_blocks", 1)
                 rec.add("merge_rows", len(keys))
                 order = np.lexsort((keys, fvs))
                 offs = np.zeros(len(keys) + 1, dtype=np.int64)
                 np.cumsum(counts, out=offs[1:])
                 gather = _range_gather(offs, counts, order)
-                spills["keys"].write(
-                    np.ascontiguousarray(keys[order], "<u8").tobytes())
-                spills["fvs"].write(
-                    np.ascontiguousarray(fvs[order], "<f4").tobytes())
-                spills["counts"].write(
-                    np.ascontiguousarray(counts[order], "<u8").tobytes())
-                br = np.concatenate([t[3] for t in taken])
-                sc = np.concatenate([t[4] for t in taken])
-                spills["branches"].write(
-                    np.ascontiguousarray(br[gather], "<u4").tobytes())
-                spills["scores"].write(
-                    np.ascontiguousarray(sc[gather], "<f4").tobytes())
-                if positions:
-                    po = np.concatenate([t[5] for t in taken])
-                    spills["positions"].write(
-                        np.ascontiguousarray(po[gather], "<u4").tobytes())
+                for i, (name, dtype, per_kmer) in enumerate(columns):
+                    col = (rows[i][order] if per_kmer else
+                           np.concatenate([t[i] for t in taken])[gather])
+                    spills[name].write(
+                        np.ascontiguousarray(col, dtype).tobytes())
     finally:
         for f in spills.values():
             f.close()
@@ -511,87 +493,10 @@ def _merge_on_disk(db: PhyloKmerDB, temp_files: List[str],
             l.close()
 
     with rec.span("merge.write"):
-        header = os.path.join(spill_dir, "header.bin")
-        with serialize.IpkWriter(header, compressed=False) as w:
-            w.write_header(db, total_kmers, total_entries)
-        paths = [header] + [os.path.join(spill_dir, name + ".bin")
-                            for name in spill_names]
-        if uncompressed:
-            with open(output_filename, "wb") as out:
-                for path in paths:
-                    with open(path, "rb") as f:
-                        shutil.copyfileobj(f, out, 1 << 22)
-        else:
-            # serialize.save's levels, read from the same variables
-            level = int(os.environ.get("IPK_TPU_ZLIB_LEVEL",
-                                       serialize.IpkWriter.DEFAULT_ZLIB_LEVEL))
-            score_level = int(os.environ.get("IPK_TPU_SCORE_ZLIB_LEVEL", 0))
-            _write_sections(
-                output_filename,
-                [(p, score_level if n == "scores" else level)
-                 for p, n in zip(paths, ["header"] + spill_names)],
-                host_threads("IPK_TPU_ZLIB_THREADS"), recorder=rec)
+        written = serialize.write_ipk(
+            output_filename,
+            serialize._header_bytes(db, total_kmers, total_entries), paths,
+            compressed=not uncompressed)
+        for name, n in written.items():
+            rec.add("merge_write_" + name, n)
     shutil.rmtree(spill_dir, ignore_errors=True)
-
-
-def _write_sections(out_path: str, sections: List[Tuple[str, int]],
-                    nthreads: int, chunk_bytes: int = 1 << 22, *,
-                    recorder: Optional[Recorder] = None) -> None:
-    """Write the concatenation of ``sections`` (files, each with its zlib
-    level) to ``out_path`` as one zlib stream, encoded as
-    ``serialize._parallel_zlib`` encodes ``save``'s columns: each file cut
-    into ``chunk_bytes`` pieces from its own start, each piece raw-deflated
-    on its own at its file's level (0 stores it) and ended by a full flush,
-    under one zlib header, the final empty block and the adler32 of the
-    whole payload.
-
-    Pieces are read only as the pool can take them: at most
-    ``2 * nthreads`` are read and not yet written, so memory is bounded by
-    the chunk length and the thread count, whatever the files' sizes
-    (``ThreadPoolExecutor.map`` would submit, and so read, every piece at
-    once). On ``recorder`` the counters ``merge_write_stored_bytes`` and
-    ``merge_write_deflated_bytes`` count the input bytes written at level 0
-    and above it, and ``merge_write_chunks`` the pieces.
-    """
-    rec = recorder if recorder is not None else Recorder()
-
-    def deflate(piece: bytes, level: int) -> Tuple[bytes, bytes]:
-        co = zlib.compressobj(level, zlib.DEFLATED, -15)
-        return co.compress(piece), co.flush(zlib.Z_FULL_FLUSH)
-
-    adler = zlib.adler32(b"")
-    stored = deflated = chunks = 0
-    pending: collections.deque = collections.deque()   # (piece, future)
-    with open(out_path, "wb") as out, \
-            ThreadPoolExecutor(max_workers=nthreads) as pool:
-
-        def write_oldest() -> None:
-            nonlocal adler
-            piece, future = pending.popleft()
-            adler = zlib.adler32(piece, adler)
-            for part in future.result():
-                out.write(part)
-
-        out.write(b"\x78\x01")              # zlib header (CM=8, no dict)
-        for path, level in sections:
-            with open(path, "rb") as f:
-                while True:
-                    if len(pending) == 2 * nthreads:
-                        write_oldest()
-                    piece = f.read(chunk_bytes)
-                    if not piece:
-                        break
-                    pending.append((piece, pool.submit(deflate, piece, level)))
-                    chunks += 1
-                    if level == 0:
-                        stored += len(piece)
-                    else:
-                        deflated += len(piece)
-        while pending:
-            write_oldest()
-        # the final empty block carries BFINAL, then the stream's checksum
-        out.write(zlib.compressobj(1, zlib.DEFLATED, -15).flush(zlib.Z_FINISH))
-        out.write(struct.pack(">I", adler & 0xFFFFFFFF))
-    rec.add("merge_write_stored_bytes", stored)
-    rec.add("merge_write_deflated_bytes", deflated)
-    rec.add("merge_write_chunks", chunks)

@@ -1,7 +1,8 @@
 """Database verification tools: diff and dump.
 
-The port's own copy of ``ipk_tpu/tools.py``: only its imports differ,
-so numerics, ordering, formats and messages stay those of the reference.
+The port's own copy of ``ipk_tpu/tools.py``: only its imports differ, and
+the streamed dump reads the header fields from the port's ``BatchLoader``'s
+``header``; numerics, ordering, formats and messages stay the reference's.
 
 Counterparts of ``tools/src/diff.cpp`` and ``tools/src/dump.cpp``. The key
 fix over the reference (flagged in SURVEY.md §2.1/§4): ``diff_databases``
@@ -199,12 +200,13 @@ def dump_database(filename: str, out: TextIO) -> None:
         _dump_rows(out, tree, traits, db.kmer_size, db.keys,
                    np.diff(db.offsets), db.branches, db.scores)
         return
-    tree = parse_newick(loader.tree)
-    traits = get_traits(loader.sequence_type)
+    header = loader.header
+    tree = parse_newick(header.tree)
+    traits = get_traits(header.sequence_type)
     try:
         while (block := loader.read_block()) is not None:
             keys, _, counts, branches, scores, _ = block
-            _dump_rows(out, tree, traits, loader.kmer_size, keys, counts,
+            _dump_rows(out, tree, traits, header.kmer_size, keys, counts,
                        branches, scores)
     finally:
         loader.close()

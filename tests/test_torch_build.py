@@ -599,38 +599,85 @@ def test_merge_on_disk_orders_by_stored_filter_value(tmp_path):
     assert merged.keys.tolist() == [7, 9, 1, 3, 12, 5]
 
 
-def test_write_sections_holds_few_chunks(tmp_path):
-    """The on-disk merge's compressed write reads its section files a chunk
-    at a time as its pool takes them: on 24 MiB of sections, 1 MiB chunks
-    and one thread, the allocations it holds at once stay under 8 MiB, and
-    the file decompresses to the magic, the header and the sections in
-    order."""
+def test_write_sections_holds_few_chunks(tmp_path, monkeypatch):
+    """The .ipk writer reads its section files a chunk at a time as its
+    pool takes them: on 24 MiB of sections, 1 MiB chunks and one thread,
+    the allocations it holds at once stay under 8 MiB, and the file
+    decompresses to the header and the sections in the table's order."""
     import tracemalloc
     from ipk_tpu_torch import serialize
-    from ipk_tpu_torch.host import _write_sections
+    monkeypatch.setenv("IPK_TPU_ZLIB_THREADS", "1")
     rng = np.random.default_rng(5)
-    sections = [
-        ("header", serialize._MAGIC + b"header fields", 2),
-        ("keys", np.arange(1 << 20, dtype="<u8").tobytes(), 2),
-        ("scores", rng.uniform(-3.4, 0, 1 << 22).astype("<f4").tobytes(), 0),
-        ("branches", rng.integers(0, 510, 1 << 20, dtype="<u4").tobytes(), 2)]
-    files = []
-    for name, data, level in sections:
-        files.append((str(tmp_path / f"{name}.bin"), level))
-        with open(files[-1][0], "wb") as f:
+    header = serialize._MAGIC + b"header fields"
+    sections = {
+        "keys": np.arange(1 << 20, dtype="<u8").tobytes(),
+        "scores": rng.uniform(-3.4, 0, 1 << 22).astype("<f4").tobytes(),
+        "branches": rng.integers(0, 510, 1 << 20, dtype="<u4").tobytes()}
+    files = {}
+    for name, data in sections.items():
+        files[name] = str(tmp_path / f"{name}.bin")
+        with open(files[name], "wb") as f:
             f.write(data)
-    expected = b"".join(data for _, data, _ in sections)
+    expected = header + b"".join(sections[name]
+                                 for name, _, _ in serialize.COLUMNS
+                                 if name in sections)
     del sections
     out = str(tmp_path / "DB.ipk")
     tracemalloc.start()
     try:
-        _write_sections(out, files, 1, chunk_bytes=1 << 20)
+        serialize.write_ipk(out, header, files, chunk_bytes=1 << 20)
         _, peak = tracemalloc.get_traced_memory()
     finally:
         tracemalloc.stop()
     assert len(expected) > 24 << 20 and peak < 8 << 20, peak
     with open(out, "rb") as f:
         assert zlib.decompress(f.read()) == expected
+
+
+def test_in_ram_and_on_disk_files_are_byte_identical_past_32_mib(tmp_path):
+    """Past 32 MiB a column the compressed save of a database and the
+    on-disk merge of the same rows write one file, byte for byte, whose
+    payload is ipk_tpu's: 2^20 keys of 9 entries each (the branches and
+    scores sections 36 MiB each), merged from two key-disjoint parts."""
+    from ipk_tpu import serialize as jserialize
+    from ipk_tpu.db import PhyloKmerDB as JaxPhyloKmerDB
+    from ipk_tpu_torch import serialize
+    from ipk_tpu_torch.db import PhyloKmerDB
+    from ipk_tpu_torch.host import _merge_on_disk
+    rng = np.random.default_rng(17)
+    n, per = 1 << 20, 9
+    keys = rng.permutation(n).astype(np.uint64)
+    fv = (rng.integers(0, 4096, n) / 4096).astype(np.float32)
+    order = np.lexsort((keys, fv))          # (fv, key), ties in fv
+    keys, fv = keys[order], fv[order]
+    offsets = np.arange(n + 1, dtype=np.int64) * per
+    branches = rng.integers(0, 510, n * per, dtype=np.uint32)
+    scores = -rng.random(n * per, dtype=np.float32)
+    head = (10, 1.5, "nucl", "(a,b)r;", [(1, 0.5), (1, 0.25), (3, 0.0)])
+    db = PhyloKmerDB(*head)
+    db.set_data(keys, fv, offsets, branches, scores)
+    ram = str(tmp_path / "ram.ipk")
+    serialize.save(db, ram)
+    os.makedirs(tmp_path / "parts")
+    parts = []
+    for half in (0, 1):
+        rows = (keys & np.uint64(1)) == half
+        part = PhyloKmerDB(*head)
+        part.set_data(keys[rows], fv[rows],
+                      np.arange(rows.sum() + 1, dtype=np.int64) * per,
+                      branches[np.repeat(rows, per)],
+                      scores[np.repeat(rows, per)])
+        parts.append(str(tmp_path / "parts" / f"{half}.ipk"))
+        serialize.save(part, parts[-1], compressed=False)
+    disk = str(tmp_path / "disk.ipk")
+    _merge_on_disk(PhyloKmerDB(*head), parts, disk, uncompressed=False)
+    with open(ram, "rb") as f, open(disk, "rb") as g:
+        assert f.read() == g.read()
+    jdb = JaxPhyloKmerDB(*head)
+    jdb.set_data(keys, fv, offsets, branches, scores)
+    jax_out = str(tmp_path / "jax.ipk")
+    jserialize.save(jdb, jax_out)
+    assert payload(ram) == payload(jax_out)
 
 
 @pytest.mark.parametrize("to_null", [True, False])

@@ -122,6 +122,29 @@ def case_ipk_bytes(tmp):
             assert _arrays(tserialize.load(j_path)) == _arrays(jd)
             assert _arrays(jserialize.load(t_path)) == _arrays(td)
             assert tserialize.load(j_path).tree == jd.tree
+            if not compressed:
+                # the port's mapped and streamed readers take both files
+                for path in (j_path, t_path):
+                    mapped = tserialize.load(path, mmap=True)
+                    assert _arrays(mapped) == _arrays(td)
+                    assert _streamed(path) == _arrays(td)
+
+
+def _streamed(path):
+    """_arrays of an uncompressed file read through one port BatchLoader
+    block that covers the whole file."""
+    loader = tserialize.BatchLoader(path)
+    try:
+        keys, fvs, counts, branches, scores, pos = loader.read_block(
+            loader.get_num_kmers())
+        assert loader.rows_left() == 0 and loader.read_block() is None
+    finally:
+        loader.close()
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    arrays = [keys, fvs, offsets, branches, scores]
+    if pos is not None:
+        arrays.append(pos)
+    return [np.asarray(a).tobytes() for a in arrays]
 
 
 def case_newick(tmp):
